@@ -1,0 +1,128 @@
+"""Runtime configuration (counterpart of ``particle_simulation_tpu/config.py``).
+
+``SimConfig`` keeps every field name and default of the JAX package's, so a
+config can be written once and handed to both packages.  The fields fall in
+three groups here:
+
+* run shape and physics (init_n ... cross_section_path, spawn_depth,
+  rng_rounds, rng_mode, worklog_rows): honoured;
+* model selections the port does not run yet (integrator, collision_model,
+  boundary, field_model, precision, init_vth, b_field, and the schedulers
+  other than naive/dynamic): ``check_supported`` raises on any value but the
+  reference one;
+* tuning knobs of the TPU kernels (lookup_*, kernel_*, worklog_unroll,
+  worklog_horizon, worklog_align, worklog_start_buckets,
+  worklog_spawn_guard, bbox_*, grid_live_chunks, full_deposit,
+  append_window, grid_mode): accepted and ignored.  None of them changes
+  the physics; they chose among TPU code paths with identical results.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+from . import constants
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    # ---- run shape (the reference's 8-arg CLI contract) ----
+    init_n: int = 10_000
+    capacity: int = 100_000
+    poisson_steps: int = 20
+    poisson_timestep: int = 10
+    scheduler: str = "naive"
+    verbose: int = 0
+    block_size: int = 256
+    sleep_time_ns: int = 0
+
+    # ---- physics / domain ----
+    grid_size: Tuple[int, int, int] = constants.DEFAULT_GRID_SIZE
+    cell_size: float = constants.DEFAULT_CELL_SIZE
+    mobility_dt: float = constants.DEFAULT_MOBILITY_DT
+    seed: int = constants.DEFAULT_SEED
+    cross_section_path: str = ""
+
+    # ---- engine knobs ----
+    spawn_depth: int = 2
+    precision: str = "f32"
+    kernel_loop: str = "while"
+    kernel_sublanes: int = 128
+    rng_rounds: int = 13
+    rng_mode: str = "block2"
+    worklog_unroll: int = 4
+    append_window: int = 0
+    worklog_rows: int = 0
+    worklog_start_buckets: int = 1
+    worklog_horizon: int = 0
+    worklog_align: bool = False
+    lookup_mode: str = "polythresh"
+    lookup_static_chunks: int = 8
+    lookup_poly_degree: int = 2
+    lookup_cand_gate: bool = True
+    lookup_poly_pack: bool = True
+    lookup_margin_fold: bool = False
+    lookup_poly_err_cap: float = 60000.0
+    lookup_poly_fit: str = "lsq"
+    lookup_tail_waves: int = 0
+    lookup_hits: bool = False
+    worklog_spawn_guard: bool = False
+    integrator: str = "leapfrog"
+    collision_model: str = "reverse"
+    b_field: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    boundary: str = "absorb"
+    init_vth: float = 0.0
+    field_model: str = "neighbour"
+    bbox_subgrid: int = 64
+    bbox_hist_lanes: int = 256
+    grid_live_chunks: int = 0
+    full_deposit: str = "scatter"
+    grid_mode: str = "replicated"
+
+    @property
+    def sim_size(self) -> Tuple[float, float, float]:
+        return tuple(g * self.cell_size for g in self.grid_size)
+
+    @property
+    def electric_force_constant(self) -> float:
+        return constants.electric_force_constant(self.cell_size)
+
+    def replace(self, **kw) -> "SimConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# model knob -> the only value the port runs so far
+_PORTED_MODEL = {
+    "integrator": "leapfrog",
+    "collision_model": "reverse",
+    "boundary": "absorb",
+    "field_model": "neighbour",
+    "precision": "f32",
+}
+
+
+def check_supported(config: SimConfig) -> None:
+    """Raise ValueError for any model selection the port does not run yet,
+    and for values the engines cannot represent."""
+    for name, value in _PORTED_MODEL.items():
+        if getattr(config, name) != value:
+            raise ValueError(
+                f"{name}={getattr(config, name)!r} is not ported yet "
+                f"(only {value!r})"
+            )
+    if config.init_vth != 0.0:
+        raise ValueError("init_vth != 0 is not ported yet")
+    if any(float(b) != 0.0 for b in config.b_field):
+        raise ValueError("a nonzero b_field is not ported yet")
+    if config.rng_mode not in ("perstep", "block2"):
+        raise ValueError(f"unknown rng_mode {config.rng_mode!r}")
+    # the work-log engine packs (resume step, spawn stamp) into 15 bits each
+    # (ops/kernels/push_mcc.py); larger step counts would alias
+    if config.scheduler == "dynamic" and config.poisson_timestep + 2 >= (1 << 15):
+        raise ValueError(
+            f"poisson_timestep={config.poisson_timestep} exceeds the work-log "
+            "engine's 15-bit stamp domain; use scheduler='naive'"
+        )
+    if config.spawn_depth < 1:
+        raise ValueError(f"spawn_depth={config.spawn_depth} must be >= 1")

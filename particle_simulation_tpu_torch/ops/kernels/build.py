@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles ``csrc/worklog.cu`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, loaded with ``ctypes``: a few seconds of
+build, against minutes for an extension that includes PyTorch's headers.
+The build runs at first use into ``particle_simulation_tpu_torch/build/``,
+named by a hash of the sources and flags, so a checkout builds once.
+
+Flags that the parity with the JAX package depends on: ``-fmad=false`` (the
+only fused multiply-adds are the explicit ``__fmaf_rn`` sites) and no
+fast-math flag (``logf`` stays the full-accuracy one).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+from ...cross_section import N_STEPS
+from .push_mcc import kernel_defines
+from .worklog import BLOCK
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+SOURCES = ("worklog.cu",)
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+
+# argument types of each exported C function, in order
+SIGNATURES = {
+    "pst_worklog_pass": (
+        _P, _LL, _I,            # src, src_stride, n_src
+        _P, _LL,                # stage, stage_stride
+        _P, _P, _P, _P,         # code, block_sums, offsets, totals
+        _P,                     # table
+        _P, _LL, _LL,           # done, done_cap, n_done_in
+        _P, _LL,                # work, work_cap
+        _F, _F, _F, _F, _F,     # dt, half_dt, size_x, size_y, size_z
+        _F, _F,                 # log10_e, bucket_scale
+        _U, _U, _I,             # seed, poisson_step, t_steps
+        _I, _I, _I,             # depth, rounds, block2
+        _P,                     # stream
+    ),
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def nvcc_flags() -> list:
+    return [
+        "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-fmad=false", "-Xptxas", "-v",
+        f"-DPST_N_STEPS={N_STEPS}", f"-DPST_BLOCK={BLOCK}", *kernel_defines(),
+    ]
+
+
+def _source_hash(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode())
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+class KernelLibrary:
+    """The loaded shared library, with what its build printed."""
+
+    def __init__(self, path: str, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self.lib = ctypes.CDLL(path)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+
+    def call(self, name: str, *args) -> None:
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> KernelLibrary:
+    """Build (if this source hash was not built yet) and load the kernels."""
+    flags = nvcc_flags()
+    so = os.path.join(BUILD_DIR, f"libpst_kernels_{_source_hash(flags)}.so")
+    log = ""
+    t0 = time.perf_counter()
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *flags, "-o", tmp,
+               *(os.path.join(CSRC, s) for s in SOURCES)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        os.replace(tmp, so)
+    return KernelLibrary(so, time.perf_counter() - t0, log)

@@ -1,0 +1,112 @@
+"""Poisson steps (counterpart of ``particle_simulation_tpu/ops/step.py``).
+
+One Poisson step is the field phase (deposit, stencil, gather; the field
+then stays frozen), the mobility phase of the configured scheduler and the
+compaction of the population (reference src/pic.cu:487-560).
+``poisson_loop`` runs several steps and returns the per-step metrics of
+the JAX package's ``poisson_loop``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..config import SimConfig, check_supported
+from ..state import SimState
+from . import grid as grid_ops
+from . import population
+from .physics import Particles
+
+METRIC_KEYS = ("n", "added", "removed", "overflow", "pushes_lo", "pushes_hi")
+
+
+def state_to_particles(state: SimState, m: int) -> Particles:
+    """The first ``m`` slots as a Particles bundle."""
+    return Particles(
+        px=state.pos[:m, 0], py=state.pos[:m, 1], pz=state.pos[:m, 2],
+        vx=state.vel[:m, 0], vy=state.vel[:m, 1], vz=state.vel[:m, 2],
+        ax=state.acc[:m, 0], ay=state.acc[:m, 1], az=state.acc[:m, 2],
+        status=state.status[:m], id_hi=state.id_hi[:m], id_lo=state.id_lo[:m],
+    )
+
+
+def active_mask(status: torch.Tensor, t: int) -> torch.Tensor:
+    """A particle moves at mobility step t iff it is live and was spawned
+    before t (children spawned at t start at t+1; reference
+    src/pic.cu:218)."""
+    return population.is_live(status) & (t > torch.clamp(status, min=0))
+
+
+def grid_phase(state: SimState, config: SimConfig) -> SimState:
+    """Deposit the live particles' charge and store each one's frozen
+    acceleration (reference src/grid_operations.cu, src/pic.cu:497-503)."""
+    m = state.n_clamped
+    pos = state.pos[:m]
+    weight = population.is_live(state.status[:m])
+    charge = grid_ops.deposit(pos, weight, config.cell_size, config.grid_size)
+    acc = torch.zeros_like(state.acc)
+    acc[:m] = grid_ops.gather_acceleration(
+        charge, pos, weight, config.cell_size, config.grid_size,
+        config.electric_force_constant,
+    )
+    return state._replace(acc=acc)
+
+
+def poisson_step(
+    state: SimState, poisson_index: int, table: torch.Tensor,
+    config: SimConfig, phase: Optional[Callable] = None,
+) -> Tuple[SimState, Dict]:
+    """One Poisson step; returns (compacted state, metrics).
+
+    ``phase`` overrides the scheduler's mobility phase (``chip_smoke.py``
+    runs the work-log kernel and its plain version side by side with it)."""
+    from ..schedulers import get_mobility_phase
+
+    check_supported(config)
+    state = grid_phase(state, config)
+    n_start = state.n_clamped
+    phase = phase or get_mobility_phase(config.scheduler)
+    state, info = phase(
+        state, int(poisson_index), table, config, config.poisson_timestep
+    )
+    if getattr(phase, "self_compacting", False):
+        compacted = state
+        added = info["added"]
+        overflow = info["overflow"]
+        removed = n_start + added - compacted.n
+    else:
+        overflow = state.n > state.capacity
+        added = state.n_clamped - n_start
+        compacted = population.compact(state)
+        removed = state.n_clamped - compacted.n
+    return compacted, {
+        "n": compacted.n,
+        "added": added,
+        "removed": removed,
+        "overflow": bool(overflow),
+        "pushes_lo": info["pushes_lo"],
+        "pushes_hi": info["pushes_hi"],
+    }
+
+
+def poisson_loop(
+    state: SimState, table: torch.Tensor, config: SimConfig, num_steps: int,
+    first_index: int = 0, phase: Optional[Callable] = None,
+) -> Tuple[SimState, Dict[str, List]]:
+    """Run ``num_steps`` Poisson steps; metrics are per-step lists.  A zero
+    population makes the remaining steps no-ops with zero metrics
+    (reference src/pic.cu:556-559)."""
+    metrics: Dict[str, List] = {k: [] for k in METRIC_KEYS}
+    for i in range(num_steps):
+        if state.n > 0:
+            state, m = poisson_step(
+                state, first_index + i, table, config, phase=phase
+            )
+        else:
+            m = {k: 0 for k in METRIC_KEYS}
+            m["overflow"] = False
+        for k in METRIC_KEYS:
+            metrics[k].append(m[k])
+    return state, metrics

@@ -1,0 +1,60 @@
+"""The port imports neither jax nor the JAX package, at import time or
+anywhere in its sources (the test process itself has jax loaded through
+conftest.py, so the import check runs in a fresh interpreter)."""
+
+import os
+import re
+import subprocess
+import sys
+
+import particle_simulation_tpu_torch
+
+PKG = os.path.dirname(particle_simulation_tpu_torch.__file__)
+REPO = os.path.dirname(PKG)
+MODULES = [
+    "particle_simulation_tpu_torch",
+    "particle_simulation_tpu_torch.config",
+    "particle_simulation_tpu_torch.constants",
+    "particle_simulation_tpu_torch.cross_section",
+    "particle_simulation_tpu_torch.fma",
+    "particle_simulation_tpu_torch.interop",
+    "particle_simulation_tpu_torch.rng",
+    "particle_simulation_tpu_torch.runtime",
+    "particle_simulation_tpu_torch.schedulers",
+    "particle_simulation_tpu_torch.state",
+    "particle_simulation_tpu_torch.ops.grid",
+    "particle_simulation_tpu_torch.ops.physics",
+    "particle_simulation_tpu_torch.ops.population",
+    "particle_simulation_tpu_torch.ops.step",
+    "particle_simulation_tpu_torch.ops.kernels.build",
+    "particle_simulation_tpu_torch.ops.kernels.push_mcc",
+    "particle_simulation_tpu_torch.ops.kernels.worklog",
+]
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'particle_simulation_tpu' or "
+        "m.startswith('particle_simulation_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_sources_import_no_jax():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|particle_simulation_tpu)(\.|\s|$)", re.M)
+    py = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+          if f.endswith(".py")]
+    py.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(py) >= len(MODULES)
+    for path in py:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path

@@ -1,0 +1,102 @@
+"""The work-log CUDA kernel against its plain PyTorch version, on the card.
+
+These tests need a CUDA GPU and nvcc and skip elsewhere.  This file imports
+no JAX, so a GPU machine without JAX runs it (skipping conftest.py):
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
+
+Tolerance: exact (sorted multiset with ids, and every counter).
+"""
+
+import pytest
+import torch
+
+from particle_simulation_tpu_torch import SimConfig
+from particle_simulation_tpu_torch.cross_section import bundled_paths, load_table
+from particle_simulation_tpu_torch.ops.kernels import build
+from particle_simulation_tpu_torch.ops.kernels.worklog import (
+    mobility_phase_worklog, mobility_phase_worklog_plain, worklog_pass,
+)
+from particle_simulation_tpu_torch.ops.step import grid_phase
+from particle_simulation_tpu_torch.runtime import multiset_with_ids
+from particle_simulation_tpu_torch.state import setup_particles
+
+pytestmark = pytest.mark.cuda
+
+CHURN = dict(init_n=3000, capacity=65536, grid_size=(32, 32, 32),
+             poisson_timestep=20, scheduler="dynamic")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run on the card with -m cuda)")
+    try:
+        build.nvcc_path()
+    except RuntimeError:
+        pytest.skip("needs nvcc (the CUDA toolkit)")
+    return torch.device("cuda", 0)
+
+
+def _compare(cfg, table, dev, steps=2):
+    st = setup_particles(cfg, device=dev)
+    for s in range(steps):
+        st = grid_phase(st, cfg)
+        k, ki = mobility_phase_worklog(st, s, table, cfg, cfg.poisson_timestep)
+        p, pi = mobility_phase_worklog_plain(st, s, table, cfg,
+                                             cfg.poisson_timestep)
+        assert (multiset_with_ids(k) == multiset_with_ids(p)).all()
+        assert k.n == p.n and ki == pi, (s, ki, pi)
+        st = k
+    return ki
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode,rounds", [("block2", 13), ("perstep", 20)])
+def test_kernel_matches_plain_const_table(dev, depth, mode, rounds):
+    cfg = SimConfig(**CHURN, spawn_depth=depth, rng_mode=mode,
+                    rng_rounds=rounds)
+    table = load_table(bundled_paths()[1], dev)
+    info = _compare(cfg, table, dev)
+    assert info["added"] > 0
+
+
+def test_kernel_matches_plain_sine_table(dev):
+    cfg = SimConfig(init_n=200_000, capacity=400_000, grid_size=(128,) * 3,
+                    poisson_timestep=100, scheduler="dynamic")
+    table = load_table(bundled_paths()[0], dev)
+    _compare(cfg, table, dev, steps=3)
+
+
+def test_launch_counter_counts_passes(dev):
+    cfg = SimConfig(**CHURN)
+    table = load_table(bundled_paths()[1], dev)
+    st = grid_phase(setup_particles(cfg, device=dev), cfg)
+    before = worklog_pass.launches
+    mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    # the const table's children chain through one pass per step
+    assert worklog_pass.launches - before > 1
+
+
+def test_work_log_overflow_is_flagged(dev):
+    cfg = SimConfig(**CHURN, worklog_rows=1)
+    table = load_table(bundled_paths()[1], dev)
+    st = grid_phase(setup_particles(cfg, device=dev), cfg)
+    out, info = mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    assert info["overflow"] and out.n <= cfg.capacity
+
+
+@pytest.mark.parametrize("bad", [dict(spawn_depth=5), dict(rng_rounds=12)])
+def test_unbuilt_variants_raise(dev, bad):
+    cfg = SimConfig(**CHURN, **bad)
+    table = load_table(bundled_paths()[1], dev)
+    st = grid_phase(setup_particles(cfg, device=dev), cfg)
+    with pytest.raises(ValueError):
+        mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+
+
+def test_table_on_the_wrong_device_raises(dev):
+    cfg = SimConfig(**CHURN)
+    st = grid_phase(setup_particles(cfg, device=dev), cfg)
+    with pytest.raises(ValueError, match="table"):
+        mobility_phase_worklog(st, 0, load_table(), cfg, cfg.poisson_timestep)
