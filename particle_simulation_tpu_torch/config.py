@@ -7,9 +7,8 @@ three groups here:
 * run shape and physics (init_n ... cross_section_path, spawn_depth,
   rng_rounds, rng_mode, worklog_rows): honoured;
 * model selections the port does not run yet (integrator, collision_model,
-  boundary, field_model, precision, init_vth, b_field, and the schedulers
-  other than naive/dynamic): ``check_supported`` raises on any value but the
-  reference one;
+  boundary, field_model, precision, init_vth, b_field):
+  ``check_supported`` raises on any value but the reference one;
 * tuning knobs of the TPU kernels (lookup_*, kernel_*, worklog_unroll,
   worklog_horizon, worklog_align, worklog_start_buckets,
   worklog_spawn_guard, bbox_*, grid_live_chunks, full_deposit,
@@ -117,12 +116,13 @@ def check_supported(config: SimConfig) -> None:
         raise ValueError("a nonzero b_field is not ported yet")
     if config.rng_mode not in ("perstep", "block2"):
         raise ValueError(f"unknown rng_mode {config.rng_mode!r}")
-    # the work-log engine packs (resume step, spawn stamp) into 15 bits each
+    # both engines pack (resume step, spawn stamp) into 15 bits each
     # (ops/kernels/push_mcc.py); larger step counts would alias
-    if config.scheduler == "dynamic" and config.poisson_timestep + 2 >= (1 << 15):
+    if (config.scheduler in ("dynamic", "dynamic_old")
+            and config.poisson_timestep + 2 >= (1 << 15)):
         raise ValueError(
-            f"poisson_timestep={config.poisson_timestep} exceeds the work-log "
-            "engine's 15-bit stamp domain; use scheduler='naive'"
+            f"poisson_timestep={config.poisson_timestep} exceeds the fused "
+            "engines' 15-bit stamp domain; use scheduler='naive' or 'sync'"
         )
     if config.spawn_depth < 1:
         raise ValueError(f"spawn_depth={config.spawn_depth} must be >= 1")

@@ -72,3 +72,11 @@ def energy_to_index(energy: torch.Tensor) -> torch.Tensor:
     idx = torch.trunc(x * torch.tensor(BUCKET_SCALE, device=energy.device))
     idx = torch.where(torch.isnan(idx), torch.zeros_like(idx), idx)
     return torch.clamp(idx, 0, N_STEPS - 1).to(torch.int32)
+
+
+def table_lookup(table: torch.Tensor, energy: torch.Tensor):
+    """(split, remove) chances of each energy's bucket: the outcome of the
+    JAX package's lookup modes (ops/kernels/push_mcc.py says why only the
+    outcome is ported), a direct ``table[energy_to_index(E)]`` read."""
+    row = table[energy_to_index(energy).long()]
+    return row[..., 0], row[..., 1]

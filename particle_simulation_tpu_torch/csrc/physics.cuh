@@ -11,7 +11,8 @@
 #include "lookup.cuh"
 #include "threefry.cuh"
 
-#if !defined(PST_SUS_BASE) || !defined(PST_STAMP_BITS) || !defined(PST_INF_START)
+#if !defined(PST_SUS_BASE) || !defined(PST_STAMP_BITS) || \
+    !defined(PST_INF_START) || !defined(PST_FIN_BASE)
 #error "status encodings must be defined by the build (ops/kernels/build.py)"
 #endif
 
@@ -34,6 +35,10 @@ struct PhysConsts {
 PST_HD bool is_suspended(int s) { return s <= PST_SUS_BASE; }
 
 PST_HD bool is_unfinished(int s) { return s == -1 || s > 0 || is_suspended(s); }
+
+// finished inside the staged engine's fixed point: (SUS_BASE, FIN_BASE]
+// packs the lane's stamp (ALIVE or its spawn step)
+PST_HD int encode_finished(int stamp) { return PST_FIN_BASE - (stamp + 2); }
 
 PST_HD int encode_suspended(int resume, int stamp) {
   return PST_SUS_BASE - (((resume - 1) << PST_STAMP_BITS) | (stamp + 2));

@@ -39,64 +39,13 @@
 #include <cstdint>
 
 #include "physics.cuh"
+#include "scan.cuh"
 
 namespace pst {
 
 constexpr int kNF = 12;
-#ifndef PST_BLOCK
-#error "PST_BLOCK must be defined by the build (ops/kernels/build.py)"
-#endif
-constexpr int kBlock = PST_BLOCK;  // worklog.py BLOCK sizes the scratch
 constexpr int kScanThreads = 1024;
 constexpr int kStatusField = 9;
-
-// inclusive sum over the block of two ints; every thread gets its block-
-// exclusive prefixes and the block totals
-__device__ __forceinline__ void block_scan2(int a, int b, int& excl_a,
-                                            int& excl_b, int& tot_a,
-                                            int& tot_b) {
-  __shared__ int warp_a[kBlock / 32];
-  __shared__ int warp_b[kBlock / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int ia = a, ib = b;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int ya = __shfl_up_sync(0xffffffffu, ia, off);
-    const int yb = __shfl_up_sync(0xffffffffu, ib, off);
-    if (lane >= off) {
-      ia += ya;
-      ib += yb;
-    }
-  }
-  if (lane == 31) {
-    warp_a[warp] = ia;
-    warp_b[warp] = ib;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int va = lane < kBlock / 32 ? warp_a[lane] : 0;
-    int vb = lane < kBlock / 32 ? warp_b[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int ya = __shfl_up_sync(0xffffffffu, va, off);
-      const int yb = __shfl_up_sync(0xffffffffu, vb, off);
-      if (lane >= off) {
-        va += ya;
-        vb += yb;
-      }
-    }
-    if (lane < kBlock / 32) {
-      warp_a[lane] = va;
-      warp_b[lane] = vb;
-    }
-  }
-  __syncthreads();
-  excl_a = (warp > 0 ? warp_a[warp - 1] : 0) + ia - a;
-  excl_b = (warp > 0 ? warp_b[warp - 1] : 0) + ib - b;
-  tot_a = warp_a[kBlock / 32 - 1];
-  tot_b = warp_b[kBlock / 32 - 1];
-}
 
 // code of a swept record: bit 0 done, bit 1 suspended, bits 2.. children
 __device__ __forceinline__ int work_count(int code) {
@@ -182,41 +131,7 @@ worklog_sweep(int32_t* __restrict__ src, long long src_stride, int n_src,
 __global__ void __launch_bounds__(kScanThreads)
 worklog_scan(const long long* __restrict__ block_sums, int n_blocks,
              long long* __restrict__ offsets, long long* __restrict__ totals) {
-  __shared__ long long sh[4][kScanThreads];
-  const int tid = threadIdx.x;
-  const int per = (n_blocks + kScanThreads - 1) / kScanThreads;
-  const int b0 = min(tid * per, n_blocks);
-  const int b1 = min(b0 + per, n_blocks);
-  long long own[4] = {0, 0, 0, 0};
-  for (int b = b0; b < b1; ++b) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) own[j] += block_sums[4LL * b + j];
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) sh[j][tid] = own[j];
-  __syncthreads();
-  // Hillis-Steele inclusive scan of the four per-thread sums
-  for (int off = 1; off < kScanThreads; off <<= 1) {
-    long long add[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) add[j] = tid >= off ? sh[j][tid - off] : 0;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sh[j][tid] += add[j];
-    __syncthreads();
-  }
-  long long od = sh[0][tid] - own[0];
-  long long ow = sh[1][tid] - own[1];
-  for (int b = b0; b < b1; ++b) {
-    offsets[2LL * b] = od;
-    offsets[2LL * b + 1] = ow;
-    od += block_sums[4LL * b];
-    ow += block_sums[4LL * b + 1];
-  }
-  if (tid == kScanThreads - 1) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) totals[j] = sh[j][tid];
-  }
+  scan_block_sums<4, 2, kScanThreads>(block_sums, n_blocks, offsets, totals);
 }
 
 __global__ void __launch_bounds__(kBlock)

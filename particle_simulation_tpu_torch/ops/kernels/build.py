@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/worklog.cu`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, loaded with ``ctypes``: a few seconds of
-build, against minutes for an extension that includes PyTorch's headers.
-The build runs at first use into ``particle_simulation_tpu_torch/build/``,
-named by a hash of the sources and flags, so a checkout builds once.
+``nvcc`` compiles each source of ``SOURCES`` for Hopper (``sm_90a``), all at
+once in parallel processes, and links the objects into one shared library
+with a plain C interface, loaded with ``ctypes``: seconds of build, against
+minutes for an extension that includes PyTorch's headers.  The build runs
+at first use into ``particle_simulation_tpu_torch/build/``, named by a hash
+of the sources and flags, so a checkout builds once.
 
 Flags that the parity with the JAX package depends on: ``-fmad=false`` (the
 only fused multiply-adds are the explicit ``__fmaf_rn`` sites) and no
@@ -22,13 +23,12 @@ import subprocess
 import time
 
 from ...cross_section import N_STEPS
-from .push_mcc import kernel_defines
-from .worklog import BLOCK
+from .push_mcc import BLOCK, kernel_defines
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("worklog.cu",)
+SOURCES = ("worklog.cu", "staged.cu")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -51,6 +51,24 @@ SIGNATURES = {
         _I, _I, _I,             # depth, rounds, block2
         _P,                     # stream
     ),
+    "pst_staged_sweep": (
+        _P, _LL, _I,            # stack, stride, n
+        _P, _P,                 # stage, code
+        _P, _P, _P,             # block_sums, offsets, totals
+        _P,                     # table
+        _F, _F, _F, _F, _F,     # dt, half_dt, size_x, size_y, size_z
+        _F, _F,                 # log10_e, bucket_scale
+        _U, _U, _I,             # seed, poisson_step, t_steps
+        _I, _I, _I,             # depth, rounds, block2
+        _P,                     # stream
+    ),
+    "pst_staged_append": (
+        _P, _LL, _I,            # stage, stride, n_swept
+        _P, _P, _P,             # code, offsets, totals
+        _I,                     # depth
+        _P, _LL,                # stack, n_dst
+        _P,                     # stream
+    ),
 }
 
 
@@ -65,9 +83,10 @@ def nvcc_path() -> str:
 
 
 def nvcc_flags() -> list:
+    """Compile flags of every source (the link adds ``-shared``)."""
     return [
         "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
         "-fmad=false", "-Xptxas", "-v",
         f"-DPST_N_STEPS={N_STEPS}", f"-DPST_BLOCK={BLOCK}", *kernel_defines(),
     ]
@@ -110,12 +129,32 @@ def load() -> KernelLibrary:
     t0 = time.perf_counter()
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = nvcc_path()
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *flags, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *flags, "-c", "-o", obj, os.path.join(CSRC, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(SOURCES, objs)
+        ]
+        failed = []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            log += f"{src}:\n{out}"
+            if proc.returncode != 0:
+                failed.append(src)
+        if not failed:
+            res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                 capture_output=True, text=True)
+            log += res.stdout + res.stderr
+            if res.returncode != 0:
+                failed.append("link")
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         os.replace(tmp, so)
     return KernelLibrary(so, time.perf_counter() - t0, log)

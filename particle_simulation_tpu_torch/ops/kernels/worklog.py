@@ -27,37 +27,13 @@ from __future__ import annotations
 
 import torch
 
-from ... import rng
 from ...config import SimConfig
-from ...cross_section import BUCKET_SCALE, LOG10_E, N_STEPS
 from ...schedulers import mobility_phase_naive, pushes_info
 from ...state import SimState
 from .. import population
-from ..physics import f32, half_dt
-from .push_mcc import NF
-
-BLOCK = 256          # threads per sweep / emit block (-DPST_BLOCK)
-MAX_DEPTH = 4        # spawn depths the kernel is instantiated for
-ROUNDS = (13, 20)    # Threefry round counts it is instantiated for
-
-
-def state_to_stack(state: SimState) -> torch.Tensor:
-    """SimState -> (12, C) int32 record stack."""
-    as_i32 = lambda a: a.contiguous().view(torch.int32)
-    return torch.cat([
-        as_i32(state.pos).t(), as_i32(state.vel).t(), as_i32(state.acc).t(),
-        state.status[None], state.id_hi[None], state.id_lo[None],
-    ]).contiguous()
-
-
-def stack_to_state(stack: torch.Tensor, n: int) -> SimState:
-    """(12, C) int32 record stack -> SimState with ``n`` created slots."""
-    vec3 = lambda rows: rows.t().contiguous().view(torch.float32)
-    return SimState(
-        pos=vec3(stack[0:3]), vel=vec3(stack[3:6]), acc=vec3(stack[6:9]),
-        status=stack[9].clone(), id_hi=stack[10].clone(),
-        id_lo=stack[11].clone(), n=n,
-    )
+from .push_mcc import (
+    BLOCK, NF, check_kernel_args, phys_args, stack_to_state, state_to_stack,
+)
 
 
 def work_capacity(config: SimConfig, capacity: int) -> int:
@@ -65,24 +41,6 @@ def work_capacity(config: SimConfig, capacity: int) -> int:
     else half the capacity (the JAX package's auto size).  A pass that
     emits more sets the overflow flag."""
     return config.worklog_rows * 128 if config.worklog_rows else max(capacity // 2, 1)
-
-
-def _check_kernel_args(config: SimConfig, table: torch.Tensor, device):
-    if not 1 <= config.spawn_depth <= MAX_DEPTH:
-        raise ValueError(
-            f"spawn_depth={config.spawn_depth}: the kernel is built for "
-            f"1..{MAX_DEPTH}"
-        )
-    if config.rng_rounds not in ROUNDS:
-        raise ValueError(
-            f"rng_rounds={config.rng_rounds}: the kernel is built for {ROUNDS}"
-        )
-    if (table.device != device or table.dtype != torch.float32
-            or table.shape != (N_STEPS, 2) or not table.is_contiguous()):
-        raise ValueError(
-            "the table must be a contiguous float32 (10000, 2) tensor on "
-            f"{device}"
-        )
 
 
 def worklog_pass(lib, src, src_stride: int, n_src: int, stage, code,
@@ -99,7 +57,6 @@ def worklog_pass(lib, src, src_stride: int, n_src: int, stage, code,
     if (n_src > src.shape[-1] or n_src > code.numel()
             or n_src > stage.shape[-1] or block_sums.shape[0] < n_blocks):
         raise ValueError("work-log scratch buffers too small for the pass")
-    sx, sy, sz = (f32(s) for s in config.sim_size)
     lib.call(
         "pst_worklog_pass",
         src.data_ptr(), src_stride, n_src,
@@ -108,11 +65,7 @@ def worklog_pass(lib, src, src_stride: int, n_src: int, stage, code,
         totals.data_ptr(), table.data_ptr(),
         done.data_ptr(), done.shape[-1], n_done_in,
         work.data_ptr(), work.shape[-1],
-        f32(config.mobility_dt), half_dt(config.mobility_dt), sx, sy, sz,
-        float(LOG10_E), float(BUCKET_SCALE),
-        config.seed & rng.MASK, poisson_step & rng.MASK, t_steps,
-        config.spawn_depth, config.rng_rounds,
-        int(config.rng_mode == "block2"),
+        *phys_args(config, poisson_step, t_steps),
         torch.cuda.current_stream(src.device).cuda_stream,
     )
     worklog_pass.launches += 1
@@ -126,7 +79,7 @@ def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
     from . import build
 
     device = state.device
-    _check_kernel_args(config, table, device)
+    check_kernel_args(config, table, device)
     lib = build.load()
     c = state.capacity
     n0 = state.n_clamped

@@ -24,8 +24,8 @@ import torch
 
 from .. import rng
 from ..constants import STATUS_DEAD
+from ..cross_section import table_lookup
 from ..fma import fma_f32
-from .kernels.push_mcc import table_lookup
 
 
 class Particles(NamedTuple):

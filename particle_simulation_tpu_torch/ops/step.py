@@ -22,13 +22,14 @@ from .physics import Particles
 METRIC_KEYS = ("n", "added", "removed", "overflow", "pushes_lo", "pushes_hi")
 
 
-def state_to_particles(state: SimState, m: int) -> Particles:
-    """The first ``m`` slots as a Particles bundle."""
+def state_to_particles(state: SimState, m: int, lo: int = 0) -> Particles:
+    """The slots [lo, m) as a Particles bundle."""
+    s = slice(lo, m)
     return Particles(
-        px=state.pos[:m, 0], py=state.pos[:m, 1], pz=state.pos[:m, 2],
-        vx=state.vel[:m, 0], vy=state.vel[:m, 1], vz=state.vel[:m, 2],
-        ax=state.acc[:m, 0], ay=state.acc[:m, 1], az=state.acc[:m, 2],
-        status=state.status[:m], id_hi=state.id_hi[:m], id_lo=state.id_lo[:m],
+        px=state.pos[s, 0], py=state.pos[s, 1], pz=state.pos[s, 2],
+        vx=state.vel[s, 0], vy=state.vel[s, 1], vz=state.vel[s, 2],
+        ax=state.acc[s, 0], ay=state.acc[s, 1], az=state.acc[s, 2],
+        status=state.status[s], id_hi=state.id_hi[s], id_lo=state.id_lo[s],
     )
 
 
@@ -61,7 +62,7 @@ def poisson_step(
     """One Poisson step; returns (compacted state, metrics).
 
     ``phase`` overrides the scheduler's mobility phase (``chip_smoke.py``
-    runs the work-log kernel and its plain version side by side with it)."""
+    runs each engine's kernel and its plain version side by side with it)."""
     from ..schedulers import get_mobility_phase
 
     check_supported(config)
@@ -77,10 +78,13 @@ def poisson_step(
         overflow = info["overflow"]
         removed = n_start + added - compacted.n
     else:
+        # rows a phase reclaimed mid-phase would still be in the container
+        # without reclamation: fold them back into added and removed
+        reclaimed = info.get("reclaimed", 0)
         overflow = state.n > state.capacity
-        added = state.n_clamped - n_start
+        added = state.n_clamped - n_start + reclaimed
         compacted = population.compact(state)
-        removed = state.n_clamped - compacted.n
+        removed = state.n_clamped - compacted.n + reclaimed
     return compacted, {
         "n": compacted.n,
         "added": added,

@@ -1,5 +1,5 @@
-"""Port parity: cross_section (tables, energy_to_index) and the lookup
-outcome of ops/kernels/push_mcc.
+"""Port parity: cross_section (tables, energy_to_index, the lookup outcome
+table_lookup) and the status encodings of ops/kernels/push_mcc.
 
 energy_to_index cannot be bitwise: torch.log and XLA:CPU's log differ on
 rare float32 inputs (about 1.7% of random energies by one ulp), which moves
@@ -82,6 +82,6 @@ def test_status_encodings_match():
 def test_table_lookup_reads_the_bucket_row():
     table = torch.arange(20000, dtype=torch.float32).reshape(10000, 2)
     energy = torch.tensor([0.0, 1e-6, 1.0, 1e16], dtype=torch.float32)
-    split, remove = tpm.table_lookup(table, energy)
+    split, remove = tcs.table_lookup(table, energy)
     idx = tcs.energy_to_index(energy).long()
     assert torch.equal(split, 2.0 * idx) and torch.equal(remove, 2.0 * idx + 1)

@@ -3,7 +3,8 @@ mobility phase, compaction) of the port against the JAX package's.
 
 The port's ``dynamic`` on CPU tensors is the work-log engine's plain
 version; it is held against JAX ``naive``, which the JAX package's own tests
-hold equal to its work-log engine and its sync oracle.  Required per step:
+hold equal to its work-log engine and its sync oracle.  The port's ``sync``
+is held against JAX ``sync``; ``dynamic_old``: tests/test_torch_staged.py.  Required per step:
 the same n, added, removed, overflow, pushes_lo and pushes_hi, and the same
 sorted particle multiset with ids (tolerance: exact).
 
@@ -26,12 +27,15 @@ from particle_simulation_tpu.cross_section import load_table as j_load
 from particle_simulation_tpu.ops.step import poisson_step as j_step
 from particle_simulation_tpu.runtime import sorted_particle_array as j_sorted
 from particle_simulation_tpu_torch import SimConfig, interop
+from particle_simulation_tpu_torch.config import check_supported
 from particle_simulation_tpu_torch.cross_section import load_table
 from particle_simulation_tpu_torch.ops.step import poisson_loop, poisson_step
 from particle_simulation_tpu_torch.runtime import (
     multiset_with_ids, run_pic, sorted_particle_array,
 )
-from particle_simulation_tpu_torch.schedulers import get_mobility_phase
+from particle_simulation_tpu_torch.schedulers import (
+    get_mobility_phase, mobility_phase_naive,
+)
 from particle_simulation_tpu_torch.state import setup_particles
 
 SIZES = {
@@ -46,9 +50,10 @@ KEYS = ("n", "added", "removed", "overflow", "pushes_lo", "pushes_hi")
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(size: str, table: str, capacity=None):
-    """JAX naive: per-step (metrics, sorted array, multiset with ids)."""
-    kw = dict(SIZES[size], scheduler="naive")
+def _jax_run(size: str, table: str, capacity=None, scheduler="naive"):
+    """JAX ``scheduler``: per-step (metrics, sorted array, multiset with
+    ids)."""
+    kw = dict(SIZES[size], scheduler=scheduler)
     if capacity:
         kw["capacity"] = capacity
     cfg = J.SimConfig(**kw)
@@ -149,7 +154,47 @@ def test_poisson_loop_stops_at_zero_population():
     assert metrics["overflow"] == [False, False]
 
 
-@pytest.mark.parametrize("name", ["sync", "dynamic_old", "other"])
+@pytest.mark.parametrize("size", ["small", "mid"])
+def test_sync_matches_jax_sync(size):
+    cfg = SimConfig(**SIZES[size], scheduler="sync")
+    ref = _jax_run(size, "const", scheduler="sync")
+    assert sum(m["added"] for m, _, _ in ref) > 0
+    _assert_same(_port_run(cfg, "const"), ref)
+
+
+@pytest.mark.parametrize("name", ["other"])
 def test_unported_schedulers_raise(name):
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown scheduler"):
         get_mobility_phase(name)
+
+
+@pytest.mark.parametrize("scheduler", ["dynamic", "dynamic_old"])
+def test_stamp_domain_raises_for_fused_engines(scheduler):
+    cfg = SimConfig(**dict(SIZES["small"], poisson_timestep=32766),
+                    scheduler=scheduler)
+    with pytest.raises(ValueError, match="stamp domain"):
+        check_supported(cfg)
+
+
+def test_poisson_step_folds_reclaimed_rows():
+    """A phase that reclaims dead rows mid-phase and does not compact
+    itself (here the naive cadence with reclamation, at a capacity where
+    it must reclaim) gives the metrics of the same phase without
+    reclamation at a capacity that holds every row."""
+    reclaimed = []
+
+    def reclaiming_naive(*args):
+        state, info = mobility_phase_naive(*args, reclaim=True)
+        reclaimed.append(info["reclaimed"])
+        return state, info
+
+    cfg = SimConfig(**dict(SIZES["mid"], capacity=16384), scheduler="naive")
+    t = load_table(bundled_paths()[1])
+    state = setup_particles(cfg)
+    port = []
+    for s in range(2):
+        state, m = poisson_step(state, s, t, cfg, phase=reclaiming_naive)
+        port.append(({k: int(m[k]) for k in KEYS}, sorted_particle_array(state),
+                     multiset_with_ids(state)))
+    assert sum(reclaimed) > 0
+    _assert_same(port, _jax_run("mid", "const")[:2])
