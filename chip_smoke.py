@@ -8,8 +8,8 @@ Phases, each printing one line or a few:
 
 1. require CUDA (there is no CPU path);
 2. the card's name and power limit (nvidia-smi);
-3. build the kernels (csrc/worklog.cu, csrc/staged.cu) and print the
-   build time;
+3. build the kernels (csrc/worklog.cu, csrc/staged.cu, csrc/field.cu, one
+   nvcc process each, in parallel) and print the build time;
 4. each kernel against its plain PyTorch version on the same inputs, each
    Poisson step: the sorted particle multiset with ids and the counters
    n, added, removed, overflow, pushes_lo, pushes_hi must be equal
@@ -22,11 +22,25 @@ Phases, each printing one line or a few:
    (d) staged: the main path's configuration with dynamic_old, its first 3
        steps, against the work-log kernel every step (the cadence
        invariant) and against its plain version on steps 0 and 1;
+   (e) field gather: banded_gather against its plain twin on the probe's
+       sorted and random ids; then the main path's field phase on its
+       steps 0-2 (step 0 must take the bbox subgrid), the kernel path
+       against the plain path (the same state on the CPU) and against the
+       full grid (bbox_subgrid=0), and packed_field_gather against its
+       plain twin on each step's gather inputs (all bitwise);
+   (f) each fallback of the field phase forced once: the window (the
+       const churn's 62-cell cube at bbox_subgrid=16) and the 10-bit
+       packing (600 charges in one cell), against the full grid and the
+       CPU (bitwise);
 5. the main path: 1M electrons, capacity 2M, grid 256^3, T=100, the
    bundled sine table, scheduler dynamic, through ops.step.poisson_loop;
    1 warm and 3 timed Poisson steps, then the plain version likewise;
    (b) the same with scheduler dynamic_old (the staged kernel), then its
-   plain version over 1 warm and 1 timed step.
+   plain version over 1 warm and 1 timed step.  Each prints the field
+   paths its steps took and the field phase's ms on its final state, the
+   subgrid and the full-grid path alternated;
+6. the field-gather probe (probes/microbench_fieldgather.py): its timing
+   lines.
 
 Any failed check raises, so the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}; the line before it lists
@@ -69,7 +83,12 @@ def main() -> int:
     import numpy as np
 
     from particle_simulation_tpu_torch import SimConfig, cross_section
+    from particle_simulation_tpu_torch.ops import grid as grid_ops
     from particle_simulation_tpu_torch.ops.kernels import build
+    from particle_simulation_tpu_torch.ops.kernels.field import (
+        banded_gather, banded_gather_plain, packed_field_gather,
+        packed_field_gather_plain,
+    )
     from particle_simulation_tpu_torch.ops.kernels.push_mcc import (
         mobility_phase_dynamic, mobility_phase_dynamic_plain, staged_pass,
         staged_reclaim,
@@ -77,8 +96,12 @@ def main() -> int:
     from particle_simulation_tpu_torch.ops.kernels.worklog import (
         mobility_phase_worklog, mobility_phase_worklog_plain, worklog_pass,
     )
+    from particle_simulation_tpu_torch.ops.population import is_live
     from particle_simulation_tpu_torch.ops.step import (
         grid_phase, poisson_loop, poisson_step,
+    )
+    from particle_simulation_tpu_torch.probes import (
+        microbench_fieldgather as probe,
     )
     from particle_simulation_tpu_torch.runtime import multiset_with_ids
     from particle_simulation_tpu_torch.state import setup_particles
@@ -236,6 +259,108 @@ def main() -> int:
     log("4d: dynamic_old kernel equal to the dynamic kernel (3 steps) and to "
         "its plain version (steps 0-1), main-path config")
 
+    # ---- 4e. the field gather ----
+    def same_bits(a, b):
+        a, b = a.cpu().contiguous(), b.cpu().contiguous()
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    def on_cpu(st):
+        return st._replace(**{f: getattr(st, f).cpu() for f in
+                              ("pos", "vel", "acc", "status", "id_hi", "id_lo")})
+
+    def gather_inputs(st, cfg):
+        """The packed subgrid table, ids and weights that the field phase's
+        gather takes at ``st`` (the subgrid path)."""
+        m, S = st.n_clamped, cfg.bbox_subgrid
+        weight = is_live(st.status[:m]).to(torch.int32)
+        idx = grid_ops.cell_indices(st.pos[:m], cfg.cell_size, cfg.grid_size)
+        origin, fits = grid_ops.bbox_window(idx, weight, cfg.grid_size, S)
+        check(fits, "4e: the main path's box does not fit the window")
+        flat = grid_ops.subgrid_ids(idx, weight, origin, S)
+        counts = grid_ops.subgrid_deposit(flat, S)
+        packed = grid_ops.pack_diffs(*grid_ops._int_diffs(counts, (S,) * 3))
+        return packed, flat, weight
+
+    field_err = 0.0
+    inp = probe.make_inputs(device=dev)
+    for order, ids in (("sorted", inp.ids_sorted), ("random", inp.ids)):
+        rows, lanes = probe.split(ids)
+        k = banded_gather(inp.table, rows, lanes)
+        check(torch.equal(k, banded_gather_plain(inp.table, rows, lanes)),
+              f"4e banded_gather, {order} ids: differs from plain")
+        log(f"  4e banded_gather, {order} ids (N={ids.numel()}, table "
+            f"{tuple(inp.table.shape)}): equal, kernel "
+            f"{probe.time_ms(banded_gather, inp.table, rows, lanes):.4f} ms "
+            f"plain "
+            f"{probe.time_ms(banded_gather_plain, inp.table, rows, lanes):.4f}"
+            " ms")
+    full_cfg = main_cfg.replace(bbox_subgrid=0)
+    e_const = main_cfg.electric_force_constant
+    st = setup_particles(main_cfg, device=dev)
+    gather_ms, gather_plain_ms = [], []
+    for s in range(3):
+        grid_ops.field_counts.reset()
+        k_acc = grid_phase(st, main_cfg).acc
+        path = grid_ops.field_counts.last
+        readbacks = grid_ops.field_counts.readbacks
+        check(s > 0 or path == "subgrid",
+              f"4e step 0 took the {path} path, not the subgrid")
+        check(same_bits(k_acc, grid_phase(on_cpu(st), main_cfg).acc),
+              f"4e step {s}: kernel field phase differs from the plain one")
+        check(same_bits(k_acc, grid_phase(st, full_cfg).acc),
+              f"4e step {s}: subgrid field phase differs from the full grid")
+        line = (f"  4e main step {s}: n={st.n} path={path} "
+                f"readbacks={readbacks}, equal to plain and to the full grid")
+        if path == "subgrid":
+            args = (*gather_inputs(st, main_cfg), e_const)
+            kg = packed_field_gather(*args)
+            pg = packed_field_gather_plain(*args)
+            check(same_bits(kg, pg), f"4e step {s}: packed_field_gather "
+                  "differs from plain")
+            field_err = max(field_err, float((kg - pg).abs().max()))
+            gather_ms.append(probe.time_ms(packed_field_gather, *args))
+            gather_plain_ms.append(probe.time_ms(packed_field_gather_plain,
+                                                 *args))
+            line += (f"; packed_field_gather equal, kernel {gather_ms[-1]:.4f}"
+                     f" ms plain {gather_plain_ms[-1]:.4f} ms")
+        log(line)
+        st = poisson_step(st, s, sine, main_cfg)[0]
+    check(gather_ms, "4e: no step took the subgrid path")
+    field_ms = sum(gather_ms) / len(gather_ms)
+    field_plain_ms = sum(gather_plain_ms) / len(gather_plain_ms)
+    log("4e: field gather equal to plain; main-path field phase equal to "
+        "plain and to the full grid (steps 0-2)")
+
+    # ---- 4f. the field phase's fallbacks ----
+    cfg16 = SimConfig(**CHURN, bbox_subgrid=16)
+    st = setup_particles(cfg16, device=dev)
+    grid_ops.field_counts.reset()
+    a = grid_phase(st, cfg16).acc
+    check(grid_ops.field_counts.last == "window_fallback",
+          "4f: the 62-cell cube fitted a 16^3 window")
+    check(same_bits(a, grid_phase(st, cfg16.replace(bbox_subgrid=0)).acc),
+          "4f window fallback differs from the full grid")
+    check(same_bits(a, grid_phase(on_cpu(st), cfg16).acc),
+          "4f window fallback differs from the CPU")
+    log("  4f window fallback (const churn, bbox_subgrid=16): taken, equal "
+        "to the full grid and the CPU")
+    cfg = SimConfig(**CHURN)
+    st = setup_particles(cfg, device=dev)
+    st.pos[:600] = 32.5 * cfg.cell_size  # 600 charges in cell (32, 32, 32)
+    grid_ops.field_counts.reset()
+    a = grid_phase(st, cfg).acc
+    check(grid_ops.field_counts.last == "subgrid"
+          and grid_ops.field_counts.rows_fallback == 1,
+          f"4f: 10-bit fallback not taken {grid_ops.field_counts.as_dict()}")
+    check(same_bits(a, grid_phase(st, cfg.replace(bbox_subgrid=0)).acc),
+          "4f 10-bit fallback differs from the full grid")
+    check(same_bits(a, grid_phase(on_cpu(st), cfg).acc),
+          "4f 10-bit fallback differs from the CPU")
+    log("  4f 10-bit fallback (600 charges in one cell): taken on the subgrid "
+        "and the full grid, equal to the full grid and the CPU")
+    log("4f: both field-phase fallbacks equal to the full grid")
+
     # ---- 5. the main path ----
     def drive(cfg, phase, timed_steps=3):
         st = setup_particles(cfg, device=dev)
@@ -254,42 +379,89 @@ def main() -> int:
         size = cfg.sim_size[0]
         check(bool(((st.pos[:n] >= 0) & (st.pos[:n] < size)).all()),
               "particle outside the domain")
-        return ms / timed_steps, pushes / (ms / 1e3), n, m
+        return ms / timed_steps, pushes / (ms / 1e3), st, m
+
+    def field_paths(tag, steps):
+        c = grid_ops.field_counts.as_dict()
+        check(sum(grid_ops.field_counts.paths.values()) == steps,
+              f"{tag}: {c} for {steps} field phases")
+        log(f"{tag} field paths over its {steps} steps: {c}")
+
+    def field_phase_ms(tag, st, cfg, reps=6):
+        """Median host ms of the field phase on ``st``, the subgrid and the
+        full-grid path alternated (warm-up first)."""
+        cfgs = {f"bbox_subgrid={cfg.bbox_subgrid}": cfg,
+                "bbox_subgrid=0": cfg.replace(bbox_subgrid=0)}
+        ms = {k: [] for k in cfgs}
+        paths = {}
+        for i in range(reps + 1):
+            for k in (list(cfgs) if i % 2 else list(cfgs)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grid_phase(st, cfgs[k])
+                torch.cuda.synchronize()
+                paths[k] = grid_ops.field_counts.last
+                if i:
+                    ms[k].append((time.perf_counter() - t0) * 1e3)
+        log(f"{tag} field phase at its final n={st.n}, alternated, median of "
+            f"{reps}: " + ", ".join(
+                f"{k} ({paths[k]}) {sorted(v)[len(v) // 2]:.3f} ms "
+                f"[{min(v):.3f}-{max(v):.3f}]" for k, v in ms.items()))
 
     worklog_pass.launches = 0
-    step_ms, rate, n, m = drive(main_cfg, None)
+    packed_field_gather.launches = 0
+    grid_ops.field_counts.reset()
+    step_ms, rate, st, m = drive(main_cfg, None)
+    n = st.n
     launches = worklog_pass.launches
+    field_launches = packed_field_gather.launches
     check(launches > 0, "the main path did not launch the work-log kernel")
+    check(field_launches > 0,
+          "the main path did not launch the field-gather kernel")
     log(f"5 main path (kernel): {step_ms:.2f} ms/Poisson step, "
         f"{rate:.4e} pushes/s, final n={n}, overflow=False, "
-        f"worklog_pass launches={launches}, added={m['added']} "
+        f"worklog_pass launches={launches}, packed_field_gather "
+        f"launches={field_launches}, added={m['added']} "
         f"removed={m['removed']}")
-    plain_step_ms, plain_rate, plain_n, _ = drive(
+    field_paths("5 main path", 4)
+    field_phase_ms("5 main path", st, main_cfg)
+    plain_step_ms, plain_rate, plain_st, _ = drive(
         main_cfg, mobility_phase_worklog_plain)
-    check(plain_n == n, f"plain final n {plain_n} vs kernel {n}")
+    check(plain_st.n == n, f"plain final n {plain_st.n} vs kernel {n}")
     log(f"5 main path (plain): {plain_step_ms:.2f} ms/Poisson step, "
-        f"{plain_rate:.4e} pushes/s, final n={plain_n}")
+        f"{plain_rate:.4e} pushes/s, final n={plain_st.n}")
     log(f"mobility phase at the main path: kernel {kernel_ms:.2f} ms, "
         f"plain {plain_ms:.2f} ms per Poisson step")
 
     staged_pass.launches = 0
     staged_reclaim.calls = 0
-    old_ms, old_rate, old_n, old_m = drive(old_cfg, None)
+    packed_field_gather.launches = 0
+    grid_ops.field_counts.reset()
+    old_ms, old_rate, old_st, old_m = drive(old_cfg, None)
     staged_launches = staged_pass.launches
     check(staged_launches > 0, "the main path did not launch the staged kernel")
-    check(old_n == n, f"dynamic_old final n {old_n} vs dynamic {n}")
+    check(packed_field_gather.launches > 0,
+          "5b did not launch the field-gather kernel")
+    check(old_st.n == n, f"dynamic_old final n {old_st.n} vs dynamic {n}")
     log(f"5b main path dynamic_old (kernel): {old_ms:.2f} ms/Poisson step, "
-        f"{old_rate:.4e} pushes/s, final n={old_n}, overflow=False, "
+        f"{old_rate:.4e} pushes/s, final n={old_st.n}, overflow=False, "
         f"staged_pass launches={staged_launches}, "
-        f"reclaims={staged_reclaim.calls}, added={old_m['added']} "
+        f"reclaims={staged_reclaim.calls}, packed_field_gather "
+        f"launches={packed_field_gather.launches}, added={old_m['added']} "
         f"removed={old_m['removed']}")
-    old_plain_ms, old_plain_rate, old_plain_n, _ = drive(
+    field_paths("5b main path dynamic_old", 4)
+    field_phase_ms("5b main path dynamic_old", old_st, old_cfg)
+    old_plain_ms, old_plain_rate, old_plain_st, _ = drive(
         old_cfg, mobility_phase_dynamic_plain, timed_steps=1)
     log(f"5b main path dynamic_old (plain): {old_plain_ms:.2f} ms/Poisson "
         f"step over 1 step, {old_plain_rate:.4e} pushes/s, "
-        f"final n={old_plain_n}")
+        f"final n={old_plain_st.n}")
     log(f"staged mobility phase at main-path step 1: kernel {staged_ms:.2f} "
         f"ms, plain {staged_plain_ms:.2f} ms")
+
+    # ---- 6. the field-gather probe ----
+    for label, value in probe.run(dev):
+        log(f"6 {label:44s} {value}")
 
     log(json.dumps({"kernels": [{
         "name": "worklog_pass",
@@ -309,6 +481,15 @@ def main() -> int:
         "max_abs_err": staged_err,
         "ms": staged_ms,
         "plain_ms": staged_plain_ms,
+    }, {
+        "name": "field_gather",
+        "route": "cuda",
+        "source": "particle_simulation_tpu_torch/csrc/field.cu",
+        "replaces": "scripts/microbench_fieldgather.py:40",
+        "launches": field_launches,
+        "max_abs_err": field_err,
+        "ms": field_ms,
+        "plain_ms": field_plain_ms,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

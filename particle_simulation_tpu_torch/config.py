@@ -5,15 +5,20 @@ config can be written once and handed to both packages.  The fields fall in
 three groups here:
 
 * run shape and physics (init_n ... cross_section_path, spawn_depth,
-  rng_rounds, rng_mode, worklog_rows): honoured;
+  rng_rounds, rng_mode, worklog_rows) and the field path (bbox_subgrid:
+  the S^3 subgrid edge, 0 for the full grid; ``check_supported`` requires
+  0 or a positive multiple of 8): honoured;
 * model selections the port does not run yet (integrator, collision_model,
   boundary, field_model, precision, init_vth, b_field):
   ``check_supported`` raises on any value but the reference one;
 * tuning knobs of the TPU kernels (lookup_*, kernel_*, worklog_unroll,
   worklog_horizon, worklog_align, worklog_start_buckets,
-  worklog_spawn_guard, bbox_*, grid_live_chunks, full_deposit,
-  append_window, grid_mode): accepted and ignored.  None of them changes
-  the physics; they chose among TPU code paths with identical results.
+  worklog_spawn_guard, append_window, grid_mode; and bbox_hist_lanes,
+  grid_live_chunks, full_deposit, which choose the MXU factorization of
+  the subgrid histogram, the skipping of dead chunks (the port works on
+  [0, n) already) and ``deposit_sorted``): accepted and ignored.  None of
+  them changes the physics; they chose among TPU code paths with
+  identical results.
 """
 
 from __future__ import annotations
@@ -126,3 +131,9 @@ def check_supported(config: SimConfig) -> None:
         )
     if config.spawn_depth < 1:
         raise ValueError(f"spawn_depth={config.spawn_depth} must be >= 1")
+    # the subgrid's S^3 cells must fill (S^3/128, 128) rows (JAX grid.py:464)
+    if config.bbox_subgrid < 0 or config.bbox_subgrid % 8:
+        raise ValueError(
+            f"bbox_subgrid={config.bbox_subgrid} must be 0 (full grid) or a "
+            "positive multiple of 8"
+        )

@@ -28,7 +28,7 @@ from .push_mcc import BLOCK, kernel_defines
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("worklog.cu", "staged.cu")
+SOURCES = ("worklog.cu", "staged.cu", "field.cu")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -67,6 +67,15 @@ SIGNATURES = {
         _P, _P, _P,             # code, offsets, totals
         _I,                     # depth
         _P, _LL,                # stack, n_dst
+        _P,                     # stream
+    ),
+    "pst_banded_gather": (
+        _P, _P, _P, _P, _LL,    # table, rows, lanes, out, n
+        _P,                     # stream
+    ),
+    "pst_packed_field_gather": (
+        _P, _P, _P, _F,         # packed, flat, weight, e_const
+        _P, _LL,                # out, n
         _P,                     # stream
     ),
 }

@@ -27,8 +27,11 @@ MODULES = [
     "particle_simulation_tpu_torch.ops.population",
     "particle_simulation_tpu_torch.ops.step",
     "particle_simulation_tpu_torch.ops.kernels.build",
+    "particle_simulation_tpu_torch.ops.kernels.field",
     "particle_simulation_tpu_torch.ops.kernels.push_mcc",
     "particle_simulation_tpu_torch.ops.kernels.worklog",
+    "particle_simulation_tpu_torch.probes",
+    "particle_simulation_tpu_torch.probes.microbench_fieldgather",
 ]
 
 
