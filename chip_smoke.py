@@ -8,8 +8,9 @@ Phases, each printing one line or a few:
 
 1. require CUDA (there is no CPU path);
 2. the card's name and power limit (nvidia-smi);
-3. build the kernels (csrc/worklog.cu, csrc/staged.cu, csrc/field.cu, one
-   nvcc process each, in parallel) and print the build time;
+3. build the kernels (csrc/worklog.cu, staged.cu, field.cu, compact.cu,
+   sublane_gather.cu and lookup_bench.cu, one nvcc process each, in
+   parallel) and print the build time;
 4. each kernel against its plain PyTorch version on the same inputs, each
    Poisson step: the sorted particle multiset with ids and the counters
    n, added, removed, overflow, pushes_lo, pushes_hi must be equal
@@ -40,21 +41,37 @@ Phases, each printing one line or a few:
    paths its steps took and the field phase's ms on its final state, the
    subgrid and the full-grid path alternated;
 6. the field-gather probe (probes/microbench_fieldgather.py): its timing
-   lines.
+   lines;
+7. the three probes whose entry points are the port's remaining kernels,
+   each at its script's sizes (probes/experiment_worklog.py,
+   experiment_sublane_gather.py, microbench_lookup.py): each kernel against
+   its plain twin, bitwise (row_compact; sublane_gather in both variants;
+   lookup_bench in all three); then, with the launch counts at 0, the
+   probe's timings, which are its path: the kernel, its twin and the
+   PyTorch call where one exists.
 
 Any failed check raises, so the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches on the main path and their times.
+the kernels with their launches on their path, their times, the plain
+version's and the library call's, and the bound: the least time the H100
+could take for the same work, from the bytes each input and output must
+move once (3.35 TB/s) and the operations these inputs need (67 TFLOP/s
+float32), whichever is larger (probes/common.py).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
+# operations a lane-step of the engines does (csrc/physics.cuh and
+# threefry.cuh, counted with an FMA as two and logf as one; the 13-round
+# Threefry block is shared by two steps under block2): the bound's count
+OPS_PER_PUSH = 70
+RECORD_BYTES = 48    # a particle: pos, vel, acc (3 x 12) + status, id_hi, id_lo
+FIELD_OPS = 10       # a particle of the field gather: unpack, scale, mask
 MAIN = dict(init_n=1_000_000, capacity=2_000_000, poisson_timestep=100,
             grid_size=(256, 256, 256), scheduler="dynamic")
 # (a): the 50/50 table makes every draw split or absorb, so a step of T=20
@@ -84,7 +101,9 @@ def main() -> int:
 
     from particle_simulation_tpu_torch import SimConfig, cross_section
     from particle_simulation_tpu_torch.ops import grid as grid_ops
-    from particle_simulation_tpu_torch.ops.kernels import build
+    from particle_simulation_tpu_torch.ops.kernels import (
+        build, compact, lookup_bench, sublane_gather,
+    )
     from particle_simulation_tpu_torch.ops.kernels.field import (
         banded_gather, banded_gather_plain, packed_field_gather,
         packed_field_gather_plain,
@@ -101,7 +120,13 @@ def main() -> int:
         grid_phase, poisson_loop, poisson_step,
     )
     from particle_simulation_tpu_torch.probes import (
+        experiment_sublane_gather, experiment_worklog, microbench_lookup,
+    )
+    from particle_simulation_tpu_torch.probes import (
         microbench_fieldgather as probe,
+    )
+    from particle_simulation_tpu_torch.probes.common import (
+        bound_ms, bound_terms, card,
     )
     from particle_simulation_tpu_torch.runtime import multiset_with_ids
     from particle_simulation_tpu_torch.state import setup_particles
@@ -109,12 +134,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- 2. the card ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)
+    log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -162,11 +182,19 @@ def main() -> int:
         check(not kc["overflow"], f"{tag}: overflow")
         return kc
 
+    def phase_work(n_in, n_out, pushes):
+        """(bytes, operations) of a mobility phase: its population in and
+        out once, the table once, OPS_PER_PUSH a lane-step."""
+        table_bytes = cross_section.N_STEPS * 8
+        return (RECORD_BYTES * (n_in + n_out) + table_bytes,
+                OPS_PER_PUSH * pushes)
+
     def kernel_vs_plain(tag, cfg, table, steps):
         """Both phases on the same grid-phase output each step; returns the
-        per-step phase times (ms) of the kernel and the plain version."""
+        per-step phase times (ms) of the kernel and the plain version, and
+        each step's (bytes, operations)."""
         st = setup_particles(cfg, device=dev)
-        k_ms, p_ms = [], []
+        k_ms, p_ms, work = [], [], []
         for s in range(steps):
             st = grid_phase(st, cfg)
             k_out, kt = timed(mobility_phase_worklog, st, s, table, cfg,
@@ -174,14 +202,15 @@ def main() -> int:
             p_out, pt = timed(mobility_phase_worklog_plain, st, s, table, cfg,
                               cfg.poisson_timestep)
             c = compare(f"{tag} step {s}", k_out, p_out)
+            pushes = c['pushes_lo'] + (c['pushes_hi'] << 30)
             log(f"  {tag} step {s}: equal, n={c['n']} added={c['added']} "
-                f"removed={c['removed']} pushes="
-                f"{c['pushes_lo'] + (c['pushes_hi'] << 30)} "
+                f"removed={c['removed']} pushes={pushes} "
                 f"kernel {kt:.2f} ms plain {pt:.2f} ms")
             k_ms.append(kt)
             p_ms.append(pt)
+            work.append(phase_work(st.n, c["n"], pushes))
             st = k_out[0]
-        return k_ms, p_ms
+        return k_ms, p_ms, work
 
     # ---- 4. kernel vs plain ----
     for depth in (2, 1):
@@ -189,11 +218,13 @@ def main() -> int:
         kernel_vs_plain(f"4a const d{depth}", cfg, const, 3)
     log("4a: kernel equal to plain (const table, spawn_depth 2 and 1)")
     main_cfg = SimConfig(**MAIN)
-    k_ms, p_ms = kernel_vs_plain("4b main", main_cfg, sine, 4)
+    k_ms, p_ms, work = kernel_vs_plain("4b main", main_cfg, sine, 4)
     log("4b: kernel equal to plain (main-path config, 4 steps)")
     # phase times at the main path's shapes, first step as warm-up
     kernel_ms = sum(k_ms[1:]) / len(k_ms[1:])
     plain_ms = sum(p_ms[1:]) / len(p_ms[1:])
+    worklog_work = [sum(w[i] for w in work[1:]) / len(work[1:])
+                    for i in (0, 1)]
 
     # ---- 4c/4d. the staged kernel, through Poisson steps ----
     def timed_phase(fn, record):
@@ -234,7 +265,7 @@ def main() -> int:
 
     old_cfg = SimConfig(**dict(MAIN, scheduler="dynamic_old"))
     st = setup_particles(old_cfg, device=dev)
-    staged_ms = staged_plain_ms = None
+    staged_ms = staged_plain_ms = staged_work = None
     for s in range(3):
         kr, pr = [], []
         before = staged_pass.launches
@@ -254,6 +285,8 @@ def main() -> int:
             line += f", equal to plain {pr[0][0]:.2f} ms"
         if s == 1:  # where the MCC first adds ~1M children
             staged_ms, staged_plain_ms = k_ms, pr[0][0]
+            staged_work = phase_work(
+                st.n, m["n"], m["pushes_lo"] + (m["pushes_hi"] << 30))
         log(line)
         st = a[0]
     log("4d: dynamic_old kernel equal to the dynamic kernel (3 steps) and to "
@@ -298,7 +331,7 @@ def main() -> int:
     full_cfg = main_cfg.replace(bbox_subgrid=0)
     e_const = main_cfg.electric_force_constant
     st = setup_particles(main_cfg, device=dev)
-    gather_ms, gather_plain_ms = [], []
+    gather_ms, gather_plain_ms, gather_work = [], [], []
     for s in range(3):
         grid_ops.field_counts.reset()
         k_acc = grid_phase(st, main_cfg).acc
@@ -322,6 +355,10 @@ def main() -> int:
             gather_ms.append(probe.time_ms(packed_field_gather, *args))
             gather_plain_ms.append(probe.time_ms(packed_field_gather_plain,
                                                  *args))
+            packed, flat = args[0], args[1]
+            gather_work.append((flat.numel() * (4 + 4 + 12)
+                                + packed.numel() * 4,
+                                flat.numel() * FIELD_OPS))
             line += (f"; packed_field_gather equal, kernel {gather_ms[-1]:.4f}"
                      f" ms plain {gather_plain_ms[-1]:.4f} ms")
         log(line)
@@ -329,6 +366,8 @@ def main() -> int:
     check(gather_ms, "4e: no step took the subgrid path")
     field_ms = sum(gather_ms) / len(gather_ms)
     field_plain_ms = sum(gather_plain_ms) / len(gather_plain_ms)
+    field_work = [sum(w[i] for w in gather_work) / len(gather_work)
+                  for i in (0, 1)]
     log("4e: field gather equal to plain; main-path field phase equal to "
         "plain and to the full grid (steps 0-2)")
 
@@ -413,14 +452,15 @@ def main() -> int:
     grid_ops.field_counts.reset()
     step_ms, rate, st, m = drive(main_cfg, None)
     n = st.n
-    launches = worklog_pass.launches
+    launches_worklog = worklog_pass.launches
     field_launches = packed_field_gather.launches
-    check(launches > 0, "the main path did not launch the work-log kernel")
+    check(launches_worklog > 0,
+          "the main path did not launch the work-log kernel")
     check(field_launches > 0,
           "the main path did not launch the field-gather kernel")
     log(f"5 main path (kernel): {step_ms:.2f} ms/Poisson step, "
         f"{rate:.4e} pushes/s, final n={n}, overflow=False, "
-        f"worklog_pass launches={launches}, packed_field_gather "
+        f"worklog_pass launches={launches_worklog}, packed_field_gather "
         f"launches={field_launches}, added={m['added']} "
         f"removed={m['removed']}")
     field_paths("5 main path", 4)
@@ -463,15 +503,64 @@ def main() -> int:
     for label, value in probe.run(dev):
         log(f"6 {label:44s} {value}")
 
+    def bounds(name, n_bytes, n_ops):
+        """The kernel line's bound keys, after a line with both terms."""
+        by_bytes, by_ops = bound_terms(n_bytes, n_ops)
+        bound, by = bound_ms(n_bytes, n_ops)
+        log(f"bound {name}: {n_bytes:.6g} B -> {by_bytes:.4f} ms, "
+            f"{n_ops:.6g} operations -> {by_ops:.4f} ms; {by} set it")
+        return {"bound_ms": bound, "bound_by": by}
+
+    # ---- 7. the probes of the remaining kernels ----
+    counted = (compact.row_compact, sublane_gather.sublane_gather,
+               lookup_bench.lookup_bench)
+    probes = (
+        ("row_compact", experiment_worklog, compact.row_compact,
+         "compact.cu", "scripts/experiment_worklog.py:25"),
+        ("sublane_gather", experiment_sublane_gather,
+         sublane_gather.sublane_gather, "sublane_gather.cu",
+         "scripts/experiment_sublane_gather.py:23"),
+        ("lookup_bench", microbench_lookup, lookup_bench.lookup_bench,
+         "lookup_bench.cu", "scripts/microbench_lookup.py:79"),
+    )
+    probe_entries = []
+    for name, mod, wrapper, source, replaces in probes:
+        t0 = time.perf_counter()
+        inp = mod.make_inputs(device=dev)
+        err = mod.check(inp)  # bitwise against the plain twin; raises
+        for fn in counted:
+            fn.launches = 0
+        timing = mod.timings(inp)  # the probe's path, counted
+        launches = wrapper.launches
+        check(launches > 0, f"7 {name}: the probe did not launch its kernel")
+        for label, value in timing.lines:
+            log(f"7 {label:60s} {value}")
+        log(f"7 {name}: equal to plain (bitwise), launches={launches}, "
+            f"kernel {timing.ms:.4f} ms, {time.perf_counter() - t0:.1f} s")
+        probe_entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"particle_simulation_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": timing.ms,
+            "plain_ms": timing.plain_ms,
+            **bounds(name, timing.bytes, timing.ops),
+            "library_ms": timing.library_ms,
+        })
+
     log(json.dumps({"kernels": [{
         "name": "worklog_pass",
         "route": "cuda",
         "source": "particle_simulation_tpu_torch/csrc/worklog.cu",
         "replaces": "particle_simulation_tpu/ops/pallas/worklog.py:302",
-        "launches": launches,
+        "launches": launches_worklog,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        **bounds("worklog_pass", *worklog_work),
+        "library_ms": None,
     }, {
         "name": "staged_pass",
         "route": "cuda",
@@ -481,6 +570,8 @@ def main() -> int:
         "max_abs_err": staged_err,
         "ms": staged_ms,
         "plain_ms": staged_plain_ms,
+        **bounds("staged_pass", *staged_work),
+        "library_ms": None,
     }, {
         "name": "field_gather",
         "route": "cuda",
@@ -490,7 +581,9 @@ def main() -> int:
         "max_abs_err": field_err,
         "ms": field_ms,
         "plain_ms": field_plain_ms,
-    }]}))
+        **bounds("field_gather", *field_work),
+        "library_ms": None,
+    }, *probe_entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ import os
 import numpy as np
 import torch
 
+from .device import resolve
 from .fma import fma_f32
 
 N_STEPS = 10000
@@ -44,10 +45,12 @@ def generate_table(n_steps: int = N_STEPS) -> np.ndarray:
 
 
 def load_table(path: str = "", device=None) -> torch.Tensor:
-    """Load (split_chance, remove_chance) pairs -> (N_STEPS, 2) float32.
+    """Load (split_chance, remove_chance) pairs -> (N_STEPS, 2) float32 on
+    ``device`` (the card when None, device.resolve).
 
     A missing or short file raises (reference src/cross_section.cu:17-21
     prints and continues with garbage)."""
+    device = resolve(device)
     if not path:
         path = _BUNDLED
     data = np.loadtxt(path, dtype=np.float64, max_rows=N_STEPS)

@@ -14,13 +14,16 @@ import numpy as np
 import torch
 
 from .cross_section import N_STEPS
+from .device import resolve
 from .state import SimState
 
 FIELDS = ("pos", "vel", "acc", "status", "id_hi", "id_lo", "n")
 
 
 def state_from_numpy(arrays: dict, device=None) -> SimState:
-    """A JAX SimState given as numpy arrays -> the port's state."""
+    """A JAX SimState given as numpy arrays -> the port's state on
+    ``device`` (the card when None, device.resolve)."""
+    device = resolve(device)
 
     def t(name, dtype):
         a = np.ascontiguousarray(np.asarray(arrays[name]))
@@ -50,7 +53,9 @@ def state_to_numpy(state: SimState) -> dict:
 
 
 def table_from_numpy(table, device=None) -> torch.Tensor:
-    """A (10000, 2) float32 cross-section table -> tensor on ``device``."""
+    """A (10000, 2) float32 cross-section table -> tensor on ``device``
+    (the card when None, device.resolve)."""
+    device = resolve(device)
     a = np.ascontiguousarray(np.asarray(table, dtype=np.float32))
     if a.shape != (N_STEPS, 2):
         raise ValueError(f"table has shape {a.shape}, expected ({N_STEPS}, 2)")

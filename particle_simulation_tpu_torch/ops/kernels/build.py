@@ -28,7 +28,8 @@ from .push_mcc import BLOCK, kernel_defines
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("worklog.cu", "staged.cu", "field.cu")
+SOURCES = ("worklog.cu", "staged.cu", "field.cu", "compact.cu",
+           "sublane_gather.cu", "lookup_bench.cu")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -76,6 +77,19 @@ SIGNATURES = {
     "pst_packed_field_gather": (
         _P, _P, _P, _F,         # packed, flat, weight, e_const
         _P, _LL,                # out, n
+        _P,                     # stream
+    ),
+    "pst_row_compact": (
+        _P, _P, _P, _P, _LL,    # x, out, ptr, state, n_rows
+        _P,                     # stream
+    ),
+    "pst_sublane_gather": (
+        _P, _P, _P, _I, _LL,    # x, idx, out, s, n
+        _I, _P,                 # both, stream
+    ),
+    "pst_lookup_bench": (
+        _P, _P, _P, _P, _LL,    # x, split, remove, out, n
+        _I, _I, _I,             # table_elems, t_steps, variant
         _P,                     # stream
     ),
 }

@@ -12,20 +12,22 @@ events, each as ms per call after a warm-up:
 4. ``kernels.field.banded_gather`` (csrc/field.cu) on sorted and on random
    ids, and its plain twin, each checked exactly against
    ``table.view(-1)[ids]``;
-5. the row band of each 128x128 tile of sorted ids (mean and max).
+5. the row band of each 128x128 tile of sorted ids (mean and max);
+6. the bound of ``banded_gather``: the least time the H100 could take to
+   read the row and lane ids and the table once and write the output once.
 
     python -m particle_simulation_tpu_torch.probes.microbench_fieldgather
 """
 
 from __future__ import annotations
 
-import subprocess
 import sys
-from typing import Callable, List, NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from ..ops.kernels.field import banded_gather, banded_gather_plain
+from .common import bound_ms, card, require_cuda, time_ms
 
 N = 1_310_720
 R, L = 2048, 128  # the packed table: 64^3 cells as (2048, 128) int32
@@ -61,20 +63,6 @@ def band_stats(ids_sorted: torch.Tensor) -> Tuple[float, int]:
     return float(span.double().mean()), int(span.max())
 
 
-def time_ms(fn: Callable, *args, reps: int = 20) -> float:
-    """CUDA-event ms per call of ``fn(*args)`` over ``reps`` calls."""
-    fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn(*args)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def _require_equal(got, want, what):
     if not torch.equal(got, want):
         raise AssertionError(f"{what}: differs from table.view(-1)[ids]")
@@ -83,9 +71,7 @@ def _require_equal(got, want, what):
 def run(device, reps: int = 20) -> List[Tuple[str, str]]:
     """Check and time every primitive on ``device`` (CUDA); returns
     (label, value) lines."""
-    if torch.device(device).type != "cuda":
-        raise ValueError("the probe times the card: pass a CUDA device")
-    inp = make_inputs(device=device)
+    inp = make_inputs(device=require_cuda(device))
     flat_table = inp.table.view(-1)
     ids64, sorted64 = inp.ids.long(), inp.ids_sorted.long()
     g = torch.Generator().manual_seed(1)
@@ -120,6 +106,8 @@ def run(device, reps: int = 20) -> List[Tuple[str, str]]:
              time_ms(banded_gather_plain, inp.table, rows, lanes, reps=reps))
     mean, mx = band_stats(inp.ids_sorted)
     out.append(("sorted tile row band", f"mean {mean:.2f} rows, max {mx}"))
+    bound, by = bound_ms(3 * 4 * N + inp.table.numel() * 4, 0)
+    out.append(("banded_gather bound", f"{bound:.4f} ms ({by})"))
     return out
 
 
@@ -127,11 +115,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("microbench_fieldgather: needs a CUDA GPU", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(f"{smi}; N={N}, table ({R}, {L}) int32", flush=True)
+    print(f"{card()}; N={N}, table ({R}, {L}) int32", flush=True)
     for label, value in run(torch.device("cuda", 0)):
         print(f"{label:44s} {value}", flush=True)
     return 0

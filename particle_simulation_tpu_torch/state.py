@@ -16,6 +16,7 @@ import torch
 from . import rng
 from .config import SimConfig
 from .constants import STATUS_ALIVE, STATUS_EMPTY
+from .device import resolve
 
 
 class SimState(NamedTuple):
@@ -41,6 +42,8 @@ class SimState(NamedTuple):
 
 
 def zero_state(config: SimConfig, device=None) -> SimState:
+    """An empty state on ``device`` (the card when None, device.resolve)."""
+    device = resolve(device)
     c = config.capacity
     return SimState(
         pos=torch.zeros((c, 3), dtype=torch.float32, device=device),
@@ -59,12 +62,14 @@ def setup_particles(config: SimConfig, slot_offset: int = 0,
     centre (reference src/particle_move.cu:7-19), with zero velocity.
 
     ``slot_offset`` shifts the global particle index that keys the ids, as
-    the JAX package's sharded setup uses it."""
+    the JAX package's sharded setup uses it.  ``device`` is the card when
+    None (device.resolve)."""
     c, init_n = config.capacity, config.init_n
     if init_n > c:
         raise ValueError(f"init_n {init_n} exceeds capacity {c}")
     if config.init_vth:
         raise ValueError("init_vth != 0 is not ported yet")
+    device = resolve(device)
     st = zero_state(config, device)
     slots = (torch.arange(c, dtype=torch.int64, device=device) + slot_offset)
     id_hi, id_lo = rng.initial_ids(config.seed, slots & rng.MASK)

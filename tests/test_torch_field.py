@@ -181,7 +181,7 @@ def test_grid_phase_matches_jax(subgrid, init_n, capacity):
     want = np.asarray(jstep._sync_grid_jit(jstate, J.SimConfig(**kw)).acc)
     tgrid.field_counts.reset()
     cfg = SimConfig(**kw)
-    got = grid_phase(interop.state_from_numpy(arrays), cfg).acc.numpy()
+    got = grid_phase(interop.state_from_numpy(arrays, "cpu"), cfg).acc.numpy()
     _assert_bitwise(want, got)
     assert tgrid.field_counts.last == ("subgrid" if subgrid else "full")
     assert tgrid.field_counts.readbacks == (2 if subgrid else 1)
@@ -284,6 +284,6 @@ def test_main_path_seed_cube_takes_the_subgrid():
     step 0 of the main path takes the subgrid path."""
     cfg = SimConfig(init_n=2000, capacity=4096, grid_size=(256, 256, 256))
     tgrid.field_counts.reset()
-    st = grid_phase(setup_particles(cfg), cfg)
+    st = grid_phase(setup_particles(cfg, device="cpu"), cfg)
     assert tgrid.field_counts.last == "subgrid"
     assert st.acc.shape == (4096, 3) and bool(torch.isfinite(st.acc).all())

@@ -107,7 +107,7 @@ def test_field_phase_on_the_card_matches_the_cpu(dev, subgrid, hot_cell):
     and without one cell of 600 charges (the rows fallback)."""
     cfg = SimConfig(init_n=60_000, capacity=65_536, grid_size=(64, 64, 64),
                     bbox_subgrid=subgrid)
-    st = setup_particles(cfg)
+    st = setup_particles(cfg, device="cpu")
     if hot_cell:
         st.pos[:600] = 32.5 * cfg.cell_size
     st.status[5:9000:9] = -2  # dead

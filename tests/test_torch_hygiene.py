@@ -16,6 +16,7 @@ MODULES = [
     "particle_simulation_tpu_torch.config",
     "particle_simulation_tpu_torch.constants",
     "particle_simulation_tpu_torch.cross_section",
+    "particle_simulation_tpu_torch.device",
     "particle_simulation_tpu_torch.fma",
     "particle_simulation_tpu_torch.interop",
     "particle_simulation_tpu_torch.rng",
@@ -27,11 +28,18 @@ MODULES = [
     "particle_simulation_tpu_torch.ops.population",
     "particle_simulation_tpu_torch.ops.step",
     "particle_simulation_tpu_torch.ops.kernels.build",
+    "particle_simulation_tpu_torch.ops.kernels.compact",
     "particle_simulation_tpu_torch.ops.kernels.field",
+    "particle_simulation_tpu_torch.ops.kernels.lookup_bench",
     "particle_simulation_tpu_torch.ops.kernels.push_mcc",
+    "particle_simulation_tpu_torch.ops.kernels.sublane_gather",
     "particle_simulation_tpu_torch.ops.kernels.worklog",
     "particle_simulation_tpu_torch.probes",
+    "particle_simulation_tpu_torch.probes.common",
+    "particle_simulation_tpu_torch.probes.experiment_sublane_gather",
+    "particle_simulation_tpu_torch.probes.experiment_worklog",
     "particle_simulation_tpu_torch.probes.microbench_fieldgather",
+    "particle_simulation_tpu_torch.probes.microbench_lookup",
 ]
 
 

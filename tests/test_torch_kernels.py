@@ -99,4 +99,5 @@ def test_table_on_the_wrong_device_raises(dev):
     cfg = SimConfig(**CHURN)
     st = grid_phase(setup_particles(cfg, device=dev), cfg)
     with pytest.raises(ValueError, match="table"):
-        mobility_phase_worklog(st, 0, load_table(), cfg, cfg.poisson_timestep)
+        mobility_phase_worklog(st, 0, load_table(device="cpu"), cfg,
+                               cfg.poisson_timestep)

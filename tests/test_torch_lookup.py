@@ -25,7 +25,7 @@ MAX_MISMATCH_FRACTION = 1e-4
 def test_tables_equal():
     for path in jcs.bundled_paths():
         np.testing.assert_array_equal(np.asarray(jcs.load_table(path)),
-                                      tcs.load_table(path).numpy())
+                                      tcs.load_table(path, "cpu").numpy())
     np.testing.assert_array_equal(jcs.generate_table(), tcs.generate_table())
     assert tcs.bundled_paths()[0] == jcs.bundled_paths()[0]
 
@@ -34,7 +34,7 @@ def test_load_table_rejects_short_file(tmp_path):
     bad = tmp_path / "short.txt"
     bad.write_text("1 2\n3 4\n")
     try:
-        tcs.load_table(str(bad))
+        tcs.load_table(str(bad), "cpu")
     except ValueError as e:
         assert "expected (10000, 2)" in str(e)
     else:

@@ -76,8 +76,8 @@ def test_one_pass_matches_jax_sweep_pass(depth):
     scalars = jnp.asarray([0, SMALL["poisson_timestep"]], jnp.int32)
 
     cfg = SimConfig(**SMALL, scheduler="dynamic_old", spawn_depth=depth)
-    stack = tpm.state_to_stack(interop.state_from_numpy(_j_numpy(js)))
-    table = load_table(bundled_paths()[1])
+    stack = tpm.state_to_stack(interop.state_from_numpy(_j_numpy(js), "cpu"))
+    table = load_table(bundled_paths()[1], "cpu")
     n = int(jn)
     for p in range(3):
         new_fields, children, pushes = jpm._sweep_pass(
@@ -111,8 +111,8 @@ def test_dynamic_old_matches_jax_dynamic_old(table, depth):
     jt = j_load(bundled_paths()[TABLES[table]])
     js = J.setup_particles(jcfg)
     cfg = SimConfig(**SMALL, scheduler="dynamic_old", spawn_depth=depth)
-    t = load_table(bundled_paths()[TABLES[table]])
-    ts = setup_particles(cfg)
+    t = load_table(bundled_paths()[TABLES[table]], "cpu")
+    ts = setup_particles(cfg, device="cpu")
     for s in range(2):
         js, jm = j_step(js, jnp.uint32(s), jt, jcfg)
         ts, tm = poisson_step(ts, s, t, cfg)
@@ -120,7 +120,7 @@ def test_dynamic_old_matches_jax_dynamic_old(table, depth):
             assert int(jm[k]) == int(tm[k]), (s, k)
         np.testing.assert_array_equal(j_sorted(js), sorted_particle_array(ts))
         np.testing.assert_array_equal(
-            multiset_with_ids(interop.state_from_numpy(_j_numpy(js))),
+            multiset_with_ids(interop.state_from_numpy(_j_numpy(js), "cpu")),
             multiset_with_ids(ts),
         )
 
@@ -146,8 +146,8 @@ def test_dynamic_old_reclaims_where_naive_overflows():
         reclaimed.append(info["reclaimed"])
         return state, info
 
-    t = load_table(bundled_paths()[1])
-    state = setup_particles(cfg)
+    t = load_table(bundled_paths()[1], "cpu")
+    state = setup_particles(cfg, device="cpu")
     port = []
     for s in range(3):
         state, m = poisson_step(state, s, t, cfg, phase=phase)
@@ -199,8 +199,8 @@ def test_staged_reclaim_keeps_encodings():
 
 def test_cpu_state_takes_the_plain_version():
     cfg = SimConfig(**SMALL, scheduler="dynamic_old")
-    t = load_table(bundled_paths()[1])
-    st = grid_phase(setup_particles(cfg), cfg)
+    t = load_table(bundled_paths()[1], "cpu")
+    st = grid_phase(setup_particles(cfg, device="cpu"), cfg)
     before = tpm.staged_pass.launches
     a, ai = tpm.mobility_phase_dynamic(st, 0, t, cfg, 6)
     b, bi = tpm.mobility_phase_dynamic_plain(st, 0, t, cfg, 6)
@@ -215,6 +215,7 @@ def test_cpu_state_takes_the_plain_version():
 
 def test_stamp_domain_is_checked():
     cfg = SimConfig(**SMALL, scheduler="dynamic_old")
-    st = grid_phase(setup_particles(cfg), cfg)
+    st = grid_phase(setup_particles(cfg, device="cpu"), cfg)
     with pytest.raises(ValueError, match="stamp domain"):
-        tpm.mobility_phase_dynamic(st, 0, load_table(), cfg, 32766)
+        tpm.mobility_phase_dynamic(st, 0, load_table(device="cpu"), cfg,
+                                   32766)

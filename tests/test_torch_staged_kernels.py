@@ -130,5 +130,5 @@ def test_table_on_the_wrong_device_raises(dev):
     cfg = SimConfig(**CHURN)
     st = grid_phase(setup_particles(cfg, device=dev), cfg)
     with pytest.raises(ValueError, match="table"):
-        pm.mobility_phase_dynamic(st, 0, load_table(), cfg,
+        pm.mobility_phase_dynamic(st, 0, load_table(device="cpu"), cfg,
                                   cfg.poisson_timestep)

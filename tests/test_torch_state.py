@@ -34,7 +34,8 @@ def _jax_numpy(state):
 def test_setup_particles_bitwise(kw, offset):
     j = _jax_numpy(j_setup(JConfig(**kw), slot_offset=offset))
     t = interop.state_to_numpy(setup_particles(SimConfig(**kw),
-                                               slot_offset=offset))
+                                               slot_offset=offset,
+                                               device="cpu"))
     for f in _FIELDS:
         assert j[f].dtype == t[f].dtype, f
         np.testing.assert_array_equal(j[f], t[f], err_msg=f)
@@ -43,15 +44,16 @@ def test_setup_particles_bitwise(kw, offset):
 def test_interop_round_trip():
     j = _jax_numpy(j_setup(JConfig(init_n=100, capacity=256,
                                    grid_size=(16, 16, 16))))
-    st = interop.state_from_numpy(j)
+    st = interop.state_from_numpy(j, "cpu")
     assert st.id_hi.dtype == torch.int32 and st.n == 100
     back = interop.state_to_numpy(st)
     for f in _FIELDS:
         np.testing.assert_array_equal(j[f], back[f], err_msg=f)
     table = np.random.default_rng(0).random((10000, 2), dtype=np.float32)
-    assert torch.equal(interop.table_from_numpy(table), torch.from_numpy(table))
+    assert torch.equal(interop.table_from_numpy(table, "cpu"),
+                       torch.from_numpy(table))
     with pytest.raises(ValueError, match="expected"):
-        interop.table_from_numpy(table[:10])
+        interop.table_from_numpy(table[:10], "cpu")
 
 
 def test_setup_rejects_bad_configs():

@@ -67,13 +67,14 @@ def _jax_run(size: str, table: str, capacity=None, scheduler="naive"):
                        for f in ("pos", "vel", "acc", "status", "id_hi",
                                  "id_lo", "n")}
         out.append((metrics, j_sorted(state),
-                    multiset_with_ids(interop.state_from_numpy(numpy_state))))
+                    multiset_with_ids(interop.state_from_numpy(numpy_state,
+                                                               "cpu"))))
     return out
 
 
 def _port_run(cfg, table: str):
-    t = load_table(bundled_paths()[TABLES[table]])
-    state = setup_particles(cfg)
+    t = load_table(bundled_paths()[TABLES[table]], "cpu")
+    state = setup_particles(cfg, device="cpu")
     out = []
     for s in range(STEPS):
         state, m = poisson_step(state, s, t, cfg)
@@ -126,8 +127,8 @@ def test_dynamic_reclaims_where_naive_overflows():
 
 def test_dynamic_output_is_compacted():
     cfg = SimConfig(**SIZES["small"], scheduler="dynamic")
-    t = load_table(bundled_paths()[1])
-    state, m = poisson_step(setup_particles(cfg), 0, t, cfg)
+    t = load_table(bundled_paths()[1], "cpu")
+    state, m = poisson_step(setup_particles(cfg, device="cpu"), 0, t, cfg)
     status = state.status.numpy()
     assert state.n == m["n"] > 0
     assert (status[: state.n] == -1).all() and (status[state.n:] == 0).all()
@@ -135,21 +136,23 @@ def test_dynamic_output_is_compacted():
 
 def test_poisson_loop_and_run_pic_match_steps():
     cfg = SimConfig(**SIZES["small"], scheduler="dynamic", poisson_steps=STEPS)
-    t = load_table(bundled_paths()[1])
+    t = load_table(bundled_paths()[1], "cpu")
     ref = _port_run(cfg, "const")
-    state, metrics = poisson_loop(setup_particles(cfg), t, cfg, STEPS)
+    state, metrics = poisson_loop(setup_particles(cfg, device="cpu"), t, cfg,
+                                  STEPS)
     for s, (m, _, ids) in enumerate(ref):
         assert {k: metrics[k][s] for k in KEYS} == m
     np.testing.assert_array_equal(multiset_with_ids(state), ref[-1][2])
-    run = run_pic(cfg, t)
+    run = run_pic(cfg, t, device="cpu")
     assert run.final_n == ref[-1][0]["n"]
     assert [s.added for s in run.steps] == [m["added"] for m, _, _ in ref]
 
 
 def test_poisson_loop_stops_at_zero_population():
     cfg = SimConfig(**dict(SIZES["small"], init_n=0), scheduler="dynamic")
-    t = load_table(bundled_paths()[1])
-    state, metrics = poisson_loop(setup_particles(cfg), t, cfg, 2)
+    t = load_table(bundled_paths()[1], "cpu")
+    state, metrics = poisson_loop(setup_particles(cfg, device="cpu"), t, cfg,
+                                  2)
     assert state.n == 0 and metrics["n"] == [0, 0]
     assert metrics["overflow"] == [False, False]
 
@@ -189,8 +192,8 @@ def test_poisson_step_folds_reclaimed_rows():
         return state, info
 
     cfg = SimConfig(**dict(SIZES["mid"], capacity=16384), scheduler="naive")
-    t = load_table(bundled_paths()[1])
-    state = setup_particles(cfg)
+    t = load_table(bundled_paths()[1], "cpu")
+    state = setup_particles(cfg, device="cpu")
     port = []
     for s in range(2):
         state, m = poisson_step(state, s, t, cfg, phase=reclaiming_naive)

@@ -40,8 +40,8 @@ def test_plain_matches_jax_dynamic_engine():
     jt = j_load(bundled_paths()[1])
     js = J.setup_particles(jcfg)
     cfg = SimConfig(**BASE, scheduler="dynamic")
-    t = load_table(bundled_paths()[1])
-    ts = setup_particles(cfg)
+    t = load_table(bundled_paths()[1], "cpu")
+    ts = setup_particles(cfg, device="cpu")
     for s in range(2):
         js, jm = j_step(js, jnp.uint32(s), jt, jcfg)
         ts, tm = poisson_step(ts, s, t, cfg)
@@ -50,15 +50,15 @@ def test_plain_matches_jax_dynamic_engine():
         np.testing.assert_array_equal(j_sorted(js), sorted_particle_array(ts))
         j_numpy = {f: np.asarray(getattr(js, f)) for f in interop.FIELDS}
         np.testing.assert_array_equal(
-            multiset_with_ids(interop.state_from_numpy(j_numpy)),
+            multiset_with_ids(interop.state_from_numpy(j_numpy, "cpu")),
             multiset_with_ids(ts),
         )
 
 
 def test_cpu_state_takes_the_plain_version():
     cfg = SimConfig(**BASE, scheduler="dynamic")
-    t = load_table(bundled_paths()[1])
-    st = grid_phase(setup_particles(cfg), cfg)
+    t = load_table(bundled_paths()[1], "cpu")
+    st = grid_phase(setup_particles(cfg, device="cpu"), cfg)
     before = worklog_pass.launches
     a, ai = mobility_phase_worklog(st, 0, t, cfg, 6)
     b, bi = mobility_phase_worklog_plain(st, 0, t, cfg, 6)
@@ -76,7 +76,7 @@ def test_other_devices_raise():
 
 
 def test_record_stack_round_trip():
-    st = setup_particles(SimConfig(**BASE))
+    st = setup_particles(SimConfig(**BASE), device="cpu")
     st = st._replace(acc=torch.randn(st.acc.shape))
     stack = state_to_stack(st)
     assert stack.shape == (12, BASE["capacity"]) and stack.dtype == torch.int32
