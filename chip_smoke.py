@@ -15,8 +15,9 @@ Phases, each printing one line or a few:
    Poisson step: the sorted particle multiset with ids and the counters
    n, added, removed, overflow, pushes_lo, pushes_hi must be equal
    (tolerance: exact);
-   (a) work-log: const 50/50 table, 65,536 particles, grid 64^3, T=20, 3
-       steps, spawn_depth 2 and 1 (1 forces suspension);
+   (a) work-log (worklog_phase, one launch a phase): const 50/50 table,
+       65,536 particles, grid 64^3, T=20, 3 steps, spawn_depth 2 and 1 (1
+       forces suspension);
    (b) work-log: the main path's configuration, its first 4 steps;
    (c) staged (scheduler dynamic_old): the configuration of (a), through
        ops.step.poisson_step;
@@ -35,7 +36,13 @@ Phases, each printing one line or a few:
        CPU (bitwise);
 5. the main path: 1M electrons, capacity 2M, grid 256^3, T=100, the
    bundled sine table, scheduler dynamic, through ops.step.poisson_loop;
-   1 warm and 3 timed Poisson steps, then the plain version likewise;
+   1 warm and 3 timed Poisson steps, with the work-log launches, the
+   passes the kernel counted and both per phase; then 3 more mobility
+   phases, each run twice on the same input: once on the host clock, once
+   under torch.profiler for the device's busy share of that run, the
+   kernels it launched and its device-to-host copies (the readbacks;
+   profile_phases says how); then the plain version over 1 warm and 3
+   timed steps;
    (b) the same with scheduler dynamic_old (the staged kernel), then its
    plain version over 1 warm and 1 timed step.  Each prints the field
    paths its steps took and the field phase's ms on its final state, the
@@ -113,7 +120,7 @@ def main() -> int:
         staged_reclaim,
     )
     from particle_simulation_tpu_torch.ops.kernels.worklog import (
-        mobility_phase_worklog, mobility_phase_worklog_plain, worklog_pass,
+        mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
     )
     from particle_simulation_tpu_torch.ops.population import is_live
     from particle_simulation_tpu_torch.ops.step import (
@@ -157,6 +164,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(stop)
 
+    def device_allocs():
+        """The caching allocator's cudaMalloc and cudaFree calls so far."""
+        stats = torch.cuda.memory_stats(dev)
+        return (stats.get("num_device_alloc", -1),
+                stats.get("num_device_free", -1))
+
     max_err = 0.0
     staged_err = 0.0
 
@@ -197,15 +210,18 @@ def main() -> int:
         k_ms, p_ms, work = [], [], []
         for s in range(steps):
             st = grid_phase(st, cfg)
+            mallocs = device_allocs()
             k_out, kt = timed(mobility_phase_worklog, st, s, table, cfg,
                               cfg.poisson_timestep)
+            mallocs = [b - a for a, b in zip(mallocs, device_allocs())]
             p_out, pt = timed(mobility_phase_worklog_plain, st, s, table, cfg,
                               cfg.poisson_timestep)
             c = compare(f"{tag} step {s}", k_out, p_out)
             pushes = c['pushes_lo'] + (c['pushes_hi'] << 30)
             log(f"  {tag} step {s}: equal, n={c['n']} added={c['added']} "
                 f"removed={c['removed']} pushes={pushes} "
-                f"kernel {kt:.2f} ms plain {pt:.2f} ms")
+                f"kernel {kt:.2f} ms (cudaMalloc {mallocs[0]}, cudaFree "
+                f"{mallocs[1]}) plain {pt:.2f} ms")
             k_ms.append(kt)
             p_ms.append(pt)
             work.append(phase_work(st.n, c["n"], pushes))
@@ -220,9 +236,11 @@ def main() -> int:
     main_cfg = SimConfig(**MAIN)
     k_ms, p_ms, work = kernel_vs_plain("4b main", main_cfg, sine, 4)
     log("4b: kernel equal to plain (main-path config, 4 steps)")
-    # phase times at the main path's shapes, first step as warm-up
-    kernel_ms = sum(k_ms[1:]) / len(k_ms[1:])
-    plain_ms = sum(p_ms[1:]) / len(p_ms[1:])
+    # phase times at the main path's shapes, first step as warm-up: the
+    # mean is the line's number; the median beside it shows a stall
+    kernel_ms, plain_ms = (sum(x[1:]) / len(x[1:]) for x in (k_ms, p_ms))
+    kernel_median, plain_median = (sorted(x[1:])[len(x[1:]) // 2]
+                                   for x in (k_ms, p_ms))
     worklog_work = [sum(w[i] for w in work[1:]) / len(work[1:])
                     for i in (0, 1)]
 
@@ -447,31 +465,110 @@ def main() -> int:
                 f"{k} ({paths[k]}) {sorted(v)[len(v) // 2]:.3f} ms "
                 f"[{min(v):.3f}-{max(v):.3f}]" for k, v in ms.items()))
 
-    worklog_pass.launches = 0
+    def profile_phases(tag, st, cfg, first_step, steps=3):
+        """The mobility phase of ``steps`` further Poisson steps from
+        ``st``, run on the same input (its grid phase's output) once timed
+        on the host from the call to a synchronize, then twice under one
+        torch.profiler session, which slows the host but shows the device.
+        Of the second profiled run (the first takes the profiler's own
+        start-up work): its span on the host (a record_function around the
+        call, which returns after its readback), the device's busy time
+        inside that span (the union of the kernels and copies), the
+        kernels launched and the device-to-host copies.  The busy share is
+        busy time over span, both of that run.  Returns the mean share, or
+        None where the profiler saw no device activity."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        cuda = torch.autograd.DeviceType.CUDA
+        shares = []
+        for s in range(steps):
+            g = grid_phase(st, cfg)
+            args = (g, first_step + s, sine, cfg, cfg.poisson_timestep)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, info = mobility_phase_worklog(*args)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    with record_function("mobility_phase"):
+                        again = mobility_phase_worklog(*args)
+                    torch.cuda.synchronize()
+            check(again[1] == info and again[0].n == st.n,
+                  f"{tag}: a second run of phase {first_step + s} differs")
+            events = prof.events()
+            span = max((e.time_range for e in events
+                        if e.name == "mobility_phase"
+                        and e.device_type != cuda), key=lambda r: r.start)
+            # the second run's device events, without the annotation's own
+            # copy there
+            spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                           for e in events if e.device_type == cuda
+                           and e.name != "mobility_phase"
+                           and e.time_range.end > span.start)
+            busy_us, end = 0.0, span.start
+            for a, b, _ in spans:  # the union, clipped to the span
+                b = min(b, span.end)
+                busy_us += max(0.0, b - max(a, end))
+                end = max(end, b)
+            span_ms = (span.end - span.start) / 1e3
+            names = [name for _, _, name in spans]
+            copies = [x for x in names if x.startswith("Memcpy")]
+            readbacks = sum("DtoH" in x for x in copies)
+            kernels = [x for x in names
+                       if not x.startswith(("Memcpy", "Memset"))]
+            last = worklog_phase.last
+            line = (f"{tag} mobility phase {first_step + s}: wall "
+                    f"{wall_ms:.3f} ms, grid of {last['blocks']} blocks, "
+                    f"{last['passes']} passes on the card; profiled run: "
+                    f"span {span_ms:.3f} ms, ")
+            if spans:
+                shares.append(busy_us / 1e3 / span_ms)
+                line += (f"device busy {busy_us / 1e3:.3f} ms "
+                         f"({100 * shares[-1]:.1f}%), kernel launches "
+                         f"{len(kernels)}, readbacks {readbacks}, other "
+                         "device ops "
+                         f"{len(names) - len(kernels) - readbacks}"
+                         f"; kernels {sorted(set(kernels))}")
+            else:
+                line += "device busy not measured (no device events)"
+            log(line)
+        return sum(shares) / len(shares) if shares else None
+
+    worklog_phase.launches = 0
+    worklog_phase.passes = 0
     packed_field_gather.launches = 0
     grid_ops.field_counts.reset()
     step_ms, rate, st, m = drive(main_cfg, None)
     n = st.n
-    launches_worklog = worklog_pass.launches
+    launches_worklog = worklog_phase.launches
+    passes_worklog = worklog_phase.passes
     field_launches = packed_field_gather.launches
-    check(launches_worklog > 0,
-          "the main path did not launch the work-log kernel")
+    check(launches_worklog == 4,
+          f"{launches_worklog} work-log launches in 4 mobility phases")
+    check(passes_worklog > launches_worklog,
+          "the main path's phases counted no chained passes")
     check(field_launches > 0,
           "the main path did not launch the field-gather kernel")
     log(f"5 main path (kernel): {step_ms:.2f} ms/Poisson step, "
         f"{rate:.4e} pushes/s, final n={n}, overflow=False, "
-        f"worklog_pass launches={launches_worklog}, packed_field_gather "
-        f"launches={field_launches}, added={m['added']} "
-        f"removed={m['removed']}")
+        f"worklog_phase launches={launches_worklog} "
+        f"({launches_worklog / 4:g} a phase), device-counted passes="
+        f"{passes_worklog} ({passes_worklog / 4:g} a phase), "
+        f"packed_field_gather launches={field_launches}, "
+        f"added={m['added']} removed={m['removed']}")
     field_paths("5 main path", 4)
     field_phase_ms("5 main path", st, main_cfg)
+    busy = profile_phases("5 main path", st, main_cfg, first_step=4)
     plain_step_ms, plain_rate, plain_st, _ = drive(
         main_cfg, mobility_phase_worklog_plain)
     check(plain_st.n == n, f"plain final n {plain_st.n} vs kernel {n}")
     log(f"5 main path (plain): {plain_step_ms:.2f} ms/Poisson step, "
         f"{plain_rate:.4e} pushes/s, final n={plain_st.n}")
-    log(f"mobility phase at the main path: kernel {kernel_ms:.2f} ms, "
-        f"plain {plain_ms:.2f} ms per Poisson step")
+    log(f"mobility phase at the main path (4b, steps 1-3): kernel mean "
+        f"{kernel_ms:.2f} ms, median {kernel_median:.2f} ms; plain mean "
+        f"{plain_ms:.2f} ms, median {plain_median:.2f} ms")
 
     staged_pass.launches = 0
     staged_reclaim.calls = 0
@@ -551,15 +648,19 @@ def main() -> int:
         })
 
     log(json.dumps({"kernels": [{
-        "name": "worklog_pass",
+        "name": "worklog_phase",
         "route": "cuda",
         "source": "particle_simulation_tpu_torch/csrc/worklog.cu",
         "replaces": "particle_simulation_tpu/ops/pallas/worklog.py:302",
         "launches": launches_worklog,
+        "passes": passes_worklog,
+        "device_busy_share": busy,
         "max_abs_err": max_err,
         "ms": kernel_ms,
+        "ms_median": kernel_median,
         "plain_ms": plain_ms,
-        **bounds("worklog_pass", *worklog_work),
+        "plain_ms_median": plain_median,
+        **bounds("worklog_phase", *worklog_work),
         "library_ms": None,
     }, {
         "name": "staged_pass",

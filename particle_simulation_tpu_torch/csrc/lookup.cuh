@@ -3,9 +3,10 @@
 // Replaces the outcome of particle_simulation_tpu/ops/pallas/push_mcc.py::
 // make_chunked_lookup (its chunk-swept lane gathers exist because the TPU
 // has no per-lane gather from an 80 KB table).  Here each lane reads its
-// bucket's (split, remove) pair as one 8-byte load through the read-only
-// data cache; the population's energies sit in few buckets, so the reads
-// hit the cache.
+// bucket's (split, remove) pair as one 8-byte load: through the read-only
+// data cache (the staged engine; the population's energies sit in few
+// buckets, so the reads hit the cache), or from a copy in shared memory
+// (the work-log engine, whose persistent blocks copy it once a phase).
 #pragma once
 
 #include "threefry.cuh"
@@ -35,6 +36,18 @@ PST_HD float2 table_lookup(const float2* __restrict__ table, float e,
 #else
   return *row;
 #endif
+}
+
+// The table staged in shared memory by a kernel whose blocks live long
+// enough to amortise the copy (worklog.cu): a plain load, no read-only
+// cache.
+struct SharedTable {
+  const float2* rows;
+};
+
+PST_HD float2 table_lookup(SharedTable table, float e, float log10_e,
+                           float bucket_scale) {
+  return table.rows[energy_to_index(e, log10_e, bucket_scale)];
 }
 
 }  // namespace pst

@@ -73,13 +73,14 @@ struct Child {
 };
 
 // Runs lane L (an unfinished record) through steps start..t_steps and
-// returns the number of steps it moved.  On return L.status is ALIVE or a
-// child stamp (finished), DEAD, or the suspended packing; children[0..
-// n_children) hold the children it spawned (at most D: a lane with D
-// children suspends at its next step).
-template <int D, int ROUNDS, bool BLOCK2>
+// returns the number of steps it moved.  ``table`` is the table in device
+// memory (const float2*) or staged in shared memory (SharedTable).  On
+// return L.status is ALIVE or a child stamp (finished), DEAD, or the
+// suspended packing; children[0..n_children) hold the children it spawned
+// (at most D: a lane with D children suspends at its next step).
+template <int D, int ROUNDS, bool BLOCK2, typename Table>
 PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
-                        const float2* __restrict__ table,
+                        Table table,
                         const PhysConsts& k) {
   const int s0 = L.status;
   int stamp = is_suspended(s0) ? suspended_stamp(s0) : s0;

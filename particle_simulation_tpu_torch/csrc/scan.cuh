@@ -14,14 +14,17 @@ namespace pst {
 #endif
 constexpr int kBlock = PST_BLOCK;  // push_mcc.py BLOCK sizes the scratch
 
-// inclusive sum over the block of two ints; every thread gets its block-
-// exclusive prefixes and the block totals.  Two calls in a row need a
-// __syncthreads() between them (they share the warp sums).
+// inclusive sum over a block of THREADS (a multiple of 32, at most 1024)
+// of two ints; every thread gets its block-exclusive prefixes and the
+// block totals.  Two calls in a row need a __syncthreads() between them
+// (they share the warp sums).
+template <int THREADS = kBlock>
 __device__ __forceinline__ void block_scan2(int a, int b, int& excl_a,
                                             int& excl_b, int& tot_a,
                                             int& tot_b) {
-  __shared__ int warp_a[kBlock / 32];
-  __shared__ int warp_b[kBlock / 32];
+  constexpr int kWarps = THREADS / 32;
+  __shared__ int warp_a[kWarps];
+  __shared__ int warp_b[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int ia = a, ib = b;
@@ -40,8 +43,8 @@ __device__ __forceinline__ void block_scan2(int a, int b, int& excl_a,
   }
   __syncthreads();
   if (warp == 0) {
-    int va = lane < kBlock / 32 ? warp_a[lane] : 0;
-    int vb = lane < kBlock / 32 ? warp_b[lane] : 0;
+    int va = lane < kWarps ? warp_a[lane] : 0;
+    int vb = lane < kWarps ? warp_b[lane] : 0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const int ya = __shfl_up_sync(0xffffffffu, va, off);
@@ -51,7 +54,7 @@ __device__ __forceinline__ void block_scan2(int a, int b, int& excl_a,
         vb += yb;
       }
     }
-    if (lane < kBlock / 32) {
+    if (lane < kWarps) {
       warp_a[lane] = va;
       warp_b[lane] = vb;
     }
@@ -59,8 +62,8 @@ __device__ __forceinline__ void block_scan2(int a, int b, int& excl_a,
   __syncthreads();
   excl_a = (warp > 0 ? warp_a[warp - 1] : 0) + ia - a;
   excl_b = (warp > 0 ? warp_b[warp - 1] : 0) + ib - b;
-  tot_a = warp_a[kBlock / 32 - 1];
-  tot_b = warp_b[kBlock / 32 - 1];
+  tot_a = warp_a[kWarps - 1];
+  tot_b = warp_b[kWarps - 1];
 }
 
 // Body of a one-block kernel of THREADS threads over ``n_blocks`` rows of

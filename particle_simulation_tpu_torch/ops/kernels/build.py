@@ -24,6 +24,7 @@ import time
 
 from ...cross_section import N_STEPS
 from .push_mcc import BLOCK, kernel_defines
+from .worklog import LOOKBACK_REGIONS, RESULT, TILE
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -39,13 +40,14 @@ _F = ctypes.c_float
 
 # argument types of each exported C function, in order
 SIGNATURES = {
-    "pst_worklog_pass": (
-        _P, _LL, _I,            # src, src_stride, n_src
-        _P, _LL,                # stage, stage_stride
-        _P, _P, _P, _P,         # code, block_sums, offsets, totals
+    "pst_worklog_phase": (
+        _P, _P, _P,             # pos, vel, acc
+        _P, _P, _P, _I,         # status, id_hi, id_lo, n0
+        _P, _P, _P,             # out_pos, out_vel, out_acc
+        _P, _P, _P, _LL,        # out_status, out_id_hi, out_id_lo, capacity
+        _P, _LL,                # logs, work_cap
+        _P, _LL, _P,            # lookback, tiles_max, result
         _P,                     # table
-        _P, _LL, _LL,           # done, done_cap, n_done_in
-        _P, _LL,                # work, work_cap
         _F, _F, _F, _F, _F,     # dt, half_dt, size_x, size_y, size_z
         _F, _F,                 # log10_e, bucket_scale
         _U, _U, _I,             # seed, poisson_step, t_steps
@@ -111,7 +113,10 @@ def nvcc_flags() -> list:
         "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
         "-fmad=false", "-Xptxas", "-v",
-        f"-DPST_N_STEPS={N_STEPS}", f"-DPST_BLOCK={BLOCK}", *kernel_defines(),
+        f"-DPST_N_STEPS={N_STEPS}", f"-DPST_BLOCK={BLOCK}",
+        f"-DPST_WORKLOG_TILE={TILE}",
+        f"-DPST_WORKLOG_REGIONS={LOOKBACK_REGIONS}",
+        f"-DPST_WORKLOG_RESULT_WORDS={len(RESULT)}", *kernel_defines(),
     ]
 
 

@@ -3,11 +3,14 @@ driver and its plain PyTorch version.
 
 Counterpart of ``particle_simulation_tpu/ops/pallas/worklog.py``:
 
-* ``_worklog_kernel`` + ``_sweep`` (one pass, one ``pallas_call``) ->
-  ``worklog_pass`` here, which launches ``csrc/worklog.cu`` (sweep, scan,
-  emit; the source note there says what bounds it on the H100);
-* ``mobility_phase_worklog`` (ping-pong passes until the work log is empty;
-  the done log is the next population) -> ``mobility_phase_worklog`` here;
+* ``_worklog_kernel`` + ``_sweep`` (one pass, one ``pallas_call``) and
+  ``mobility_phase_worklog``'s ``lax.while_loop`` over passes ->
+  ``worklog_phase`` here, which launches ``csrc/worklog.cu`` once for the
+  whole phase: a persistent grid loops over the passes on the card (the
+  source note there says what bounds it on the H100 and what the design
+  does about it);
+* ``mobility_phase_worklog`` -> ``mobility_phase_worklog`` here: buffers,
+  the one launch and the one readback of the phase;
 * the plain version, ``mobility_phase_worklog_plain``: the naive cadence in
   torch (reclaiming dead rows mid-phase) followed by ``compact``.  It gives
   the same sorted multiset, ids and counters (the repo's cadence
@@ -16,14 +19,18 @@ Counterpart of ``particle_simulation_tpu/ops/pallas/worklog.py``:
 ``mobility_phase_worklog`` takes the plain version only for a state on the
 CPU; for a CUDA state it launches the kernel or raises.
 
-Records travel as (12, stride) int32 stacks in ``FIELD_NAMES`` order, with
-float fields as bit patterns.  The TPU kernel's (8, 128) tiles, its
-triangular-matmul ranks and its byte-split matmul scatter (the emission,
-worklog.py:117-277) are not carried over: on the GPU the emission is an
-order-preserving block scan.
+The kernel reads the caller's ``SimState`` tensors and writes the done log
+straight into the output ``SimState``; the work logs between passes are
+(12, work_capacity) int32 planes in ``FIELD_NAMES`` order, float fields as
+bit patterns.  The TPU kernel's (8, 128) tiles, its triangular-matmul ranks
+and its byte-split matmul scatter (the emission, worklog.py:117-277) are
+not carried over: on the GPU the emission is a block scan and a decoupled
+look-back.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -31,9 +38,19 @@ from ...config import SimConfig
 from ...schedulers import mobility_phase_naive, pushes_info
 from ...state import SimState
 from .. import population
-from .push_mcc import (
-    BLOCK, NF, check_kernel_args, phys_args, stack_to_state, state_to_stack,
-)
+from .push_mcc import NF, check_kernel_args, phys_args
+
+# records a tile and threads a block of the phase kernel (-DPST_WORKLOG_TILE)
+TILE = 384
+
+# the words the kernel leaves in ``result``, in the order of kRes* in
+# csrc/worklog.cu (the build passes their count, -DPST_WORKLOG_RESULT_WORDS,
+# and the kernel checks it)
+RESULT = ("n_done", "children", "pushes", "passes", "overflow", "stuck",
+          "blocks")
+# passes whose look-back words exist at once: kRegions in csrc/worklog.cu,
+# which rotates them (-DPST_WORKLOG_REGIONS)
+LOOKBACK_REGIONS = 3
 
 
 def work_capacity(config: SimConfig, capacity: int) -> int:
@@ -43,92 +60,143 @@ def work_capacity(config: SimConfig, capacity: int) -> int:
     return config.worklog_rows * 128 if config.worklog_rows else max(capacity // 2, 1)
 
 
-def worklog_pass(lib, src, src_stride: int, n_src: int, stage, code,
-                 block_sums, offsets, totals, table, done, n_done_in: int,
-                 work, config: SimConfig, poisson_step: int, t_steps: int):
-    """Launch one work-log pass on the current stream: sweep ``n_src``
-    records of ``src`` (updated in place), append finished records to
-    ``done`` after ``n_done_in``, new work to ``work``.  ``totals``
-    receives (done, work, children, pushes) of the pass."""
-    for t in (src, stage, code, done, work):
-        if t.device.type != "cuda" or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError("work-log buffers must be contiguous int32 CUDA tensors")
-    n_blocks = -(-n_src // BLOCK)
-    if (n_src > src.shape[-1] or n_src > code.numel()
-            or n_src > stage.shape[-1] or block_sums.shape[0] < n_blocks):
-        raise ValueError("work-log scratch buffers too small for the pass")
-    lib.call(
-        "pst_worklog_pass",
-        src.data_ptr(), src_stride, n_src,
-        stage.data_ptr(), stage.shape[-1],
-        code.data_ptr(), block_sums.data_ptr(), offsets.data_ptr(),
-        totals.data_ptr(), table.data_ptr(),
-        done.data_ptr(), done.shape[-1], n_done_in,
-        work.data_ptr(), work.shape[-1],
-        *phys_args(config, poisson_step, t_steps),
-        torch.cuda.current_stream(src.device).cuda_stream,
+def scratch_shapes(config: SimConfig, capacity: int) -> dict:
+    """Shapes of the phase's scratch buffers: the two work logs, the
+    look-back words (per region a ticket, then a done and a work word per
+    tile of the largest pass) and the result words.  Neither the spawn
+    depth nor the number of passes sizes anything."""
+    w_cap = work_capacity(config, capacity)
+    tiles = -(-max(capacity, w_cap) // TILE)
+    return {
+        "logs": (2, NF, w_cap),
+        "lookback": (LOOKBACK_REGIONS, 1 + 2 * tiles),
+        "result": (len(RESULT),),
+    }
+
+
+class PhaseBuffers(NamedTuple):
+    """What the kernel writes: the output state (the done log) and its
+    scratch."""
+
+    out: SimState
+    logs: torch.Tensor      # (2, 12, work_capacity) int32
+    lookback: torch.Tensor  # (LOOKBACK_REGIONS, 1 + 2 * tiles) int64
+    result: torch.Tensor    # (len(RESULT),) int64
+
+
+def phase_buffers(state: SimState, config: SimConfig) -> PhaseBuffers:
+    """Uninitialised buffers for one phase on the state's device (the
+    kernel zeroes what needs it)."""
+    dev, c = state.device, state.capacity
+    shapes = scratch_shapes(config, c)
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = SimState(
+        pos=empty((c, 3), torch.float32), vel=empty((c, 3), torch.float32),
+        acc=empty((c, 3), torch.float32), status=empty((c,), torch.int32),
+        id_hi=empty((c,), torch.int32), id_lo=empty((c,), torch.int32), n=0,
     )
-    worklog_pass.launches += 1
+    return PhaseBuffers(out, empty(shapes["logs"], torch.int32),
+                        empty(shapes["lookback"], torch.int64),
+                        empty(shapes["result"], torch.int64))
 
 
-worklog_pass.launches = 0
+def _check_buffers(state: SimState, bufs: PhaseBuffers,
+                   config: SimConfig) -> None:
+    c = state.capacity
+    shapes = scratch_shapes(config, c)
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    want = [
+        *((f"state.{f}", getattr(state, f), f32, (c, 3))
+          for f in ("pos", "vel", "acc")),
+        *((f"state.{f}", getattr(state, f), i32, (c,))
+          for f in ("status", "id_hi", "id_lo")),
+        *((f"out.{f}", getattr(bufs.out, f), f32, (c, 3))
+          for f in ("pos", "vel", "acc")),
+        *((f"out.{f}", getattr(bufs.out, f), i32, (c,))
+          for f in ("status", "id_hi", "id_lo")),
+        ("logs", bufs.logs, i32, shapes["logs"]),
+        ("lookback", bufs.lookback, i64, shapes["lookback"]),
+        ("result", bufs.result, i64, shapes["result"]),
+    ]
+    faults = (  # each property over every buffer, the device last
+        lambda t, dtype, shape: t.dtype != dtype and f"dtype {t.dtype}",
+        lambda t, dtype, shape: (tuple(t.shape) != shape
+                                 and f"shape {tuple(t.shape)}"),
+        lambda t, dtype, shape: not t.is_contiguous() and "not contiguous",
+        lambda t, dtype, shape: ((t.device.type != "cuda"
+                                  or t.device != state.device)
+                                 and f"on {t.device}"),
+    )
+    for fault in faults:
+        for name, t, dtype, shape in want:
+            why = fault(t, dtype, shape)
+            if why:
+                raise ValueError(
+                    f"work-log phase: {name} must be a contiguous {dtype} "
+                    f"CUDA tensor of shape {shape} on the state's device; "
+                    f"it is {why}")
+
+
+def worklog_phase(lib, state: SimState, bufs: PhaseBuffers, table,
+                  config: SimConfig, poisson_step: int, t_steps: int) -> None:
+    """Launch one whole mobility phase on the current stream: the
+    ``state.n_clamped`` records of ``state`` (read, never written) through
+    every pass to the done log ``bufs.out``; ``bufs.result`` receives the
+    ``RESULT`` words.  Raises before any launch on a buffer the kernel does
+    not take."""
+    _check_buffers(state, bufs, config)
+    out = bufs.out
+    lib.call(
+        "pst_worklog_phase",
+        state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
+        state.status.data_ptr(), state.id_hi.data_ptr(),
+        state.id_lo.data_ptr(), state.n_clamped,
+        out.pos.data_ptr(), out.vel.data_ptr(), out.acc.data_ptr(),
+        out.status.data_ptr(), out.id_hi.data_ptr(), out.id_lo.data_ptr(),
+        state.capacity,
+        bufs.logs.data_ptr(), bufs.logs.shape[-1],
+        bufs.lookback.data_ptr(), (bufs.lookback.shape[1] - 1) // 2,
+        bufs.result.data_ptr(), table.data_ptr(),
+        *phys_args(config, poisson_step, t_steps),
+        torch.cuda.current_stream(state.device).cuda_stream,
+    )
+    worklog_phase.launches += 1
+
+
+worklog_phase.launches = 0
+worklog_phase.passes = 0  # passes the kernel counted, over every phase
+worklog_phase.last = {}   # the last phase's RESULT words
 
 
 def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
                                  config: SimConfig, t_steps: int):
     from . import build
 
-    device = state.device
-    check_kernel_args(config, table, device)
-    lib = build.load()
-    c = state.capacity
-    n0 = state.n_clamped
-    w_cap = work_capacity(config, c)
-    done = torch.zeros((NF, c), dtype=torch.int32, device=device)
+    check_kernel_args(config, table, state.device)
+    n0, c = state.n_clamped, state.capacity
     if n0 == 0:
-        return stack_to_state(done, 0), {
+        return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), {
             "added": 0, "removed": 0, "overflow": False, **pushes_info(0)
         }
-    stride = max(c, w_cap)
-    logs = [torch.empty((NF, w_cap), dtype=torch.int32, device=device)
-            for _ in range(2)]
-    stage = torch.empty((config.spawn_depth, NF, stride), dtype=torch.int32,
-                        device=device)
-    code = torch.empty(stride, dtype=torch.int32, device=device)
-    n_blocks = -(-stride // BLOCK)
-    block_sums = torch.empty((n_blocks, 4), dtype=torch.int64, device=device)
-    offsets = torch.empty((n_blocks, 2), dtype=torch.int64, device=device)
-    totals = torch.empty(4, dtype=torch.int64, device=device)
-
-    n_done = children = pushes = passes = 0
-    overflow = False
-    src, n_src, target = state_to_stack(state), n0, 0
-    while n_src > 0:
-        # every record of pass k+1 starts at least one step later than the
-        # earliest start of pass k, so a phase needs at most t_steps + 1
-        passes += 1
-        if passes > t_steps + 1:
-            raise RuntimeError(
-                f"work-log engine did not converge in {t_steps + 1} passes"
-            )
-        worklog_pass(lib, src, src.shape[-1], n_src, stage, code, block_sums,
-                     offsets, totals, table, done, n_done, logs[target],
-                     config, poisson_step, t_steps)
-        d, w, ch, p = totals.tolist()  # the one readback of the pass
-        n_done += d
-        children += ch
-        pushes += p
-        if w > w_cap:
-            overflow = True
-            w = w_cap
-        src, n_src, target = logs[target], w, 1 - target
-    overflow = overflow or n_done > c
-    n_live = min(n_done, c)
-    return stack_to_state(done, n_live), {
-        "added": children,
-        "removed": n0 + children - n_live,
-        "overflow": overflow,
-        **pushes_info(pushes),
+    bufs = phase_buffers(state, config)
+    worklog_phase(build.load(), state, bufs, table, config, poisson_step,
+                  t_steps)
+    r = dict(zip(RESULT, bufs.result.tolist()))  # the one readback
+    worklog_phase.passes += r["passes"]
+    worklog_phase.last = r
+    if r["stuck"]:
+        raise RuntimeError(
+            f"work-log engine did not converge in {t_steps + 1} passes"
+        )
+    n_live = min(r["n_done"], c)
+    return bufs.out._replace(n=n_live), {
+        "added": r["children"],
+        "removed": n0 + r["children"] - n_live,
+        "overflow": bool(r["overflow"]) or r["n_done"] > c,
+        **pushes_info(r["pushes"]),
     }
 
 

@@ -15,7 +15,7 @@ from particle_simulation_tpu_torch import SimConfig
 from particle_simulation_tpu_torch.cross_section import bundled_paths, load_table
 from particle_simulation_tpu_torch.ops.kernels import build
 from particle_simulation_tpu_torch.ops.kernels.worklog import (
-    mobility_phase_worklog, mobility_phase_worklog_plain, worklog_pass,
+    mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
 )
 from particle_simulation_tpu_torch.ops.step import grid_phase
 from particle_simulation_tpu_torch.runtime import multiset_with_ids
@@ -72,10 +72,36 @@ def test_launch_counter_counts_passes(dev):
     cfg = SimConfig(**CHURN)
     table = load_table(bundled_paths()[1], dev)
     st = grid_phase(setup_particles(cfg, device=dev), cfg)
-    before = worklog_pass.launches
+    launches, passes = worklog_phase.launches, worklog_phase.passes
     mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
-    # the const table's children chain through one pass per step
-    assert worklog_pass.launches - before > 1
+    # one launch a phase; the const table's children chain through one
+    # pass per step, counted on the card
+    assert worklog_phase.launches - launches == 1
+    assert worklog_phase.passes - passes > 1
+
+
+def test_two_runs_give_identical_tensors(dev):
+    """The emission order depends on counts alone: not only the multiset
+    but every output tensor is the same, bit for bit, run after run."""
+    cfg = SimConfig(**CHURN)
+    table = load_table(bundled_paths()[1], dev)
+    st = grid_phase(setup_particles(cfg, device=dev), cfg)
+    a, ai = mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    b, bi = mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    assert ai == bi and a.n == b.n and ai["added"] > 0
+    for x, y in zip(a[:6], b[:6]):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_input_state_is_not_written(dev):
+    cfg = SimConfig(**CHURN)
+    table = load_table(bundled_paths()[1], dev)
+    st = grid_phase(setup_particles(cfg, device=dev), cfg)
+    before = [t.clone() for t in st[:6]]
+    mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    torch.cuda.synchronize()
+    for x, y in zip(st[:6], before):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def test_work_log_overflow_is_flagged(dev):
@@ -84,6 +110,19 @@ def test_work_log_overflow_is_flagged(dev):
     st = grid_phase(setup_particles(cfg, device=dev), cfg)
     out, info = mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
     assert info["overflow"] and out.n <= cfg.capacity
+
+
+def test_done_log_overflow_is_flagged(dev):
+    """3,000 electrons of the const churn end the phase 3,078 strong (the
+    plain version at a larger capacity): the done log passes a capacity of
+    3,000 while the work logs (512 rows of 128) hold every pass."""
+    cfg = SimConfig(**dict(CHURN, capacity=3000), worklog_rows=512)
+    table = load_table(bundled_paths()[1], dev)
+    st = grid_phase(setup_particles(cfg, device=dev), cfg)
+    out, info = mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    assert info["overflow"] and out.n == cfg.capacity
+    assert info["removed"] == cfg.init_n + info["added"] - cfg.capacity
+    assert bool((out.status == -1).all())
 
 
 @pytest.mark.parametrize("bad", [dict(spawn_depth=5), dict(rng_rounds=12)])
