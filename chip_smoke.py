@@ -19,11 +19,13 @@ Phases, each printing one line or a few:
        65,536 particles, grid 64^3, T=20, 3 steps, spawn_depth 2 and 1 (1
        forces suspension);
    (b) work-log: the main path's configuration, its first 4 steps;
-   (c) staged (scheduler dynamic_old): the configuration of (a), through
-       ops.step.poisson_step;
-   (d) staged: the main path's configuration with dynamic_old, its first 3
+   (c) staged (staged_phase, one launch a phase; scheduler dynamic_old):
+       the configuration of (a), through ops.step.poisson_step; the output
+       tensors must also be equal bit for bit;
+   (d) staged: the main path's configuration with dynamic_old, its first 4
        steps, against the work-log kernel every step (the cadence
-       invariant) and against its plain version on steps 0 and 1;
+       invariant) and against its plain version on steps 0 and 1; the
+       phase's time at each step, its launches, passes and reclaims;
    (e) field gather: banded_gather against its plain twin on the probe's
        sorted and random ids; then the main path's field phase on its
        steps 0-2 (step 0 must take the bbox subgrid), the kernel path
@@ -36,17 +38,18 @@ Phases, each printing one line or a few:
        CPU (bitwise);
 5. the main path: 1M electrons, capacity 2M, grid 256^3, T=100, the
    bundled sine table, scheduler dynamic, through ops.step.poisson_loop;
-   1 warm and 3 timed Poisson steps, with the work-log launches, the
-   passes the kernel counted and both per phase; then 3 more mobility
-   phases, each run twice on the same input: once on the host clock, once
-   under torch.profiler for the device's busy share of that run, the
-   kernels it launched and its device-to-host copies (the readbacks;
-   profile_phases says how); then the plain version over 1 warm and 3
-   timed steps;
-   (b) the same with scheduler dynamic_old (the staged kernel), then its
-   plain version over 1 warm and 1 timed step.  Each prints the field
-   paths its steps took and the field phase's ms on its final state, the
-   subgrid and the full-grid path alternated;
+   1 warm and 3 timed Poisson steps (mean and median of the CUDA-event
+   time of each), with the work-log launches, the passes the kernel
+   counted and both per phase; then 3 more mobility phases, each run
+   twice on the same input: once on the host clock, once under
+   torch.profiler for the device's busy share of that run, the kernels it
+   launched and its device-to-host copies (the readbacks; profile_phases
+   says how); then the plain version over 1 warm and 3 timed steps;
+   (b) the same with scheduler dynamic_old (the staged kernel: launches,
+   device-counted passes and reclaims per phase, and 3 profiled phases),
+   then its plain version over 1 warm and 1 timed step.  Each prints the
+   field paths its steps took and the field phase's ms on its final state,
+   the subgrid and the full-grid path alternated;
 6. the field-gather probe (probes/microbench_fieldgather.py): its timing
    lines;
 7. the three probes whose entry points are the port's remaining kernels,
@@ -116,8 +119,7 @@ def main() -> int:
         packed_field_gather_plain,
     )
     from particle_simulation_tpu_torch.ops.kernels.push_mcc import (
-        mobility_phase_dynamic, mobility_phase_dynamic_plain, staged_pass,
-        staged_reclaim,
+        mobility_phase_dynamic, mobility_phase_dynamic_plain, staged_phase,
     )
     from particle_simulation_tpu_torch.ops.kernels.worklog import (
         mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
@@ -251,16 +253,25 @@ def main() -> int:
             out, ms = timed(fn, *args)
             record.append((ms, out[1]))
             return out
+        phase.self_compacting = getattr(fn, "self_compacting", False)
         return phase
 
-    def step_compare(tag, a, b):
+    def same_bits(a, b):
+        a, b = a.cpu().contiguous(), b.cpu().contiguous()
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    def step_compare(tag, a, b, bitwise=False):
         """Two Poisson steps from one state: multiset + ids + the six
-        counters."""
+        counters; with ``bitwise``, every output tensor too."""
         nonlocal staged_err
         (sa, ma), (sb, mb) = a, b
         staged_err = max(staged_err, multiset_err(tag, sa, sb))
         check(ma == mb, f"{tag}: counters {ma} vs {mb}")
         check(not ma["overflow"], f"{tag}: overflow")
+        if bitwise:
+            check(all(same_bits(x, y) for x, y in zip(sa[:6], sb[:6])),
+                  f"{tag}: output tensors differ")
 
     for depth in (2, 1):
         cfg = SimConfig(**dict(CHURN, scheduler="dynamic_old"),
@@ -272,50 +283,64 @@ def main() -> int:
                              phase=timed_phase(mobility_phase_dynamic, kr))
             b = poisson_step(st, s, const, cfg,
                              phase=timed_phase(mobility_phase_dynamic_plain, pr))
-            step_compare(f"4c const d{depth} step {s}", a, b)
-            m = a[1]
-            log(f"  4c const d{depth} step {s}: equal, n={m['n']} "
+            step_compare(f"4c const d{depth} step {s}", a, b, bitwise=True)
+            m, info = a[1], kr[0][1]
+            check(info == pr[0][1],
+                  f"4c const d{depth} step {s}: {info} vs plain {pr[0][1]}")
+            log(f"  4c const d{depth} step {s}: equal bit for bit, n={m['n']} "
                 f"added={m['added']} removed={m['removed']} "
-                f"reclaimed={kr[0][1]['reclaimed']} "
+                f"passes={info['passes']} reclaimed={info['reclaimed']} "
                 f"kernel {kr[0][0]:.2f} ms plain {pr[0][0]:.2f} ms")
             st = a[0]
-    log("4c: staged kernel equal to plain (const table, spawn_depth 2 and 1)")
+    log("4c: staged kernel equal to plain, output tensors bit for bit (const "
+        "table, spawn_depth 2 and 1)")
 
     old_cfg = SimConfig(**dict(MAIN, scheduler="dynamic_old"))
     st = setup_particles(old_cfg, device=dev)
-    staged_ms = staged_plain_ms = staged_work = None
-    for s in range(3):
+    staged_k_ms, staged_work = [], []
+    staged_plain_ms = None
+    for s in range(4):
         kr, pr = [], []
-        before = staged_pass.launches
+        launches = staged_phase.launches
         a = poisson_step(st, s, sine, old_cfg,
                          phase=timed_phase(mobility_phase_dynamic, kr))
-        passes = staged_pass.launches - before
+        launches = staged_phase.launches - launches
+        check(launches == 1, f"4d step {s}: {launches} staged launches")
         step_compare(f"4d step {s} vs dynamic", a,
                      poisson_step(st, s, sine, main_cfg))
         m, (k_ms, info) = a[1], kr[0]
         line = (f"  4d main step {s}: equal to dynamic, n={m['n']} "
-                f"added={m['added']} removed={m['removed']} passes={passes} "
-                f"reclaimed={info['reclaimed']} kernel {k_ms:.2f} ms")
+                f"added={m['added']} removed={m['removed']} launches="
+                f"{launches} passes={info['passes']} reclaims="
+                f"{staged_phase.last['reclaims']} reclaimed="
+                f"{info['reclaimed']} kernel {k_ms:.2f} ms")
         if s < 2:
             step_compare(f"4d step {s} vs plain", a, poisson_step(
                 st, s, sine, old_cfg,
                 phase=timed_phase(mobility_phase_dynamic_plain, pr)))
+            check(info == pr[0][1], f"4d step {s}: {info} vs plain "
+                  f"{pr[0][1]}")
             line += f", equal to plain {pr[0][0]:.2f} ms"
         if s == 1:  # where the MCC first adds ~1M children
-            staged_ms, staged_plain_ms = k_ms, pr[0][0]
-            staged_work = phase_work(
-                st.n, m["n"], m["pushes_lo"] + (m["pushes_hi"] << 30))
+            staged_plain_ms = pr[0][0]
+        if s:
+            staged_k_ms.append(k_ms)
+            staged_work.append(phase_work(
+                st.n, m["n"], m["pushes_lo"] + (m["pushes_hi"] << 30)))
         log(line)
         st = a[0]
-    log("4d: dynamic_old kernel equal to the dynamic kernel (3 steps) and to "
-        "its plain version (steps 0-1), main-path config")
+    # as 4b: steps 1-3, the mean is the line's number, the median beside it
+    staged_ms = sum(staged_k_ms) / len(staged_k_ms)
+    staged_median = sorted(staged_k_ms)[len(staged_k_ms) // 2]
+    staged_work = [sum(w[i] for w in staged_work) / len(staged_work)
+                   for i in (0, 1)]
+    log("4d: dynamic_old kernel equal to the dynamic kernel (4 steps) and to "
+        "its plain version (steps 0-1), main-path config; one launch a "
+        f"phase; kernel phase at step 1 {staged_k_ms[0]:.2f} ms, steps 1-3 "
+        f"mean {staged_ms:.2f} ms, median {staged_median:.2f} ms; plain at "
+        f"step 1 {staged_plain_ms:.2f} ms")
 
     # ---- 4e. the field gather ----
-    def same_bits(a, b):
-        a, b = a.cpu().contiguous(), b.cpu().contiguous()
-        return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                                  b.view(torch.int32))
-
     def on_cpu(st):
         return st._replace(**{f: getattr(st, f).cpu() for f in
                               ("pos", "vel", "acc", "status", "id_hi", "id_lo")})
@@ -420,10 +445,18 @@ def main() -> int:
 
     # ---- 5. the main path ----
     def drive(cfg, phase, timed_steps=3):
+        """1 warm and ``timed_steps`` timed Poisson steps from the seed
+        state, CUDA events around each (a step ends in its readbacks);
+        returns the mean and median step ms, pushes/s over the timed
+        steps, the final state and their metrics."""
         st = setup_particles(cfg, device=dev)
         st, warm = poisson_loop(st, sine, cfg, 1, phase=phase)
-        (st, m), ms = timed(poisson_loop, st, sine, cfg, timed_steps, 1,
-                            phase)
+        ms, m = [], {}
+        for i in range(timed_steps):
+            (st, mi), t = timed(poisson_loop, st, sine, cfg, 1, 1 + i, phase)
+            ms.append(t)
+            for k, v in mi.items():
+                m.setdefault(k, []).extend(v)
         pushes = sum(lo + (hi << 30)
                      for lo, hi in zip(m["pushes_lo"], m["pushes_hi"]))
         check(not any(warm["overflow"] + m["overflow"]), "main path overflow")
@@ -436,7 +469,10 @@ def main() -> int:
         size = cfg.sim_size[0]
         check(bool(((st.pos[:n] >= 0) & (st.pos[:n] < size)).all()),
               "particle outside the domain")
-        return ms / timed_steps, pushes / (ms / 1e3), st, m
+        log(f"  steps 1-{timed_steps} ms: "
+            + ", ".join(f"{t:.3f}" for t in ms))
+        return (sum(ms) / len(ms), sorted(ms)[len(ms) // 2],
+                pushes / (sum(ms) / 1e3), st, m)
 
     def field_paths(tag, steps):
         c = grid_ops.field_counts.as_dict()
@@ -465,9 +501,11 @@ def main() -> int:
                 f"{k} ({paths[k]}) {sorted(v)[len(v) // 2]:.3f} ms "
                 f"[{min(v):.3f}-{max(v):.3f}]" for k, v in ms.items()))
 
-    def profile_phases(tag, st, cfg, first_step, steps=3):
-        """The mobility phase of ``steps`` further Poisson steps from
-        ``st``, run on the same input (its grid phase's output) once timed
+    def profile_phases(tag, st, cfg, first_step, phase, wrapper, steps=3):
+        """The mobility phase ``phase`` (whose kernel wrapper ``wrapper``
+        keeps the last phase's result words) of ``steps`` further Poisson
+        steps from ``st``, run on the same input (its grid phase's output)
+        once timed
         on the host from the call to a synchronize, then twice under one
         torch.profiler session, which slows the host but shows the device.
         Of the second profiled run (the first takes the profiler's own
@@ -486,14 +524,14 @@ def main() -> int:
             args = (g, first_step + s, sine, cfg, cfg.poisson_timestep)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            st, info = mobility_phase_worklog(*args)
+            st, info = phase(*args)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(2):
                     with record_function("mobility_phase"):
-                        again = mobility_phase_worklog(*args)
+                        again = phase(*args)
                     torch.cuda.synchronize()
             check(again[1] == info and again[0].n == st.n,
                   f"{tag}: a second run of phase {first_step + s} differs")
@@ -518,11 +556,13 @@ def main() -> int:
             readbacks = sum("DtoH" in x for x in copies)
             kernels = [x for x in names
                        if not x.startswith(("Memcpy", "Memset"))]
-            last = worklog_phase.last
+            last = wrapper.last
+            reclaims = (f", {last['reclaims']} reclaims" if "reclaims" in last
+                        else "")
             line = (f"{tag} mobility phase {first_step + s}: wall "
                     f"{wall_ms:.3f} ms, grid of {last['blocks']} blocks, "
-                    f"{last['passes']} passes on the card; profiled run: "
-                    f"span {span_ms:.3f} ms, ")
+                    f"{last['passes']} passes on the card{reclaims}; "
+                    f"profiled run: span {span_ms:.3f} ms, ")
             if spans:
                 shares.append(busy_us / 1e3 / span_ms)
                 line += (f"device busy {busy_us / 1e3:.3f} ms "
@@ -540,7 +580,7 @@ def main() -> int:
     worklog_phase.passes = 0
     packed_field_gather.launches = 0
     grid_ops.field_counts.reset()
-    step_ms, rate, st, m = drive(main_cfg, None)
+    step_ms, step_median, rate, st, m = drive(main_cfg, None)
     n = st.n
     launches_worklog = worklog_phase.launches
     passes_worklog = worklog_phase.passes
@@ -551,17 +591,18 @@ def main() -> int:
           "the main path's phases counted no chained passes")
     check(field_launches > 0,
           "the main path did not launch the field-gather kernel")
-    log(f"5 main path (kernel): {step_ms:.2f} ms/Poisson step, "
-        f"{rate:.4e} pushes/s, final n={n}, overflow=False, "
-        f"worklog_phase launches={launches_worklog} "
+    log(f"5 main path (kernel): {step_ms:.2f} ms/Poisson step (median "
+        f"{step_median:.2f}), {rate:.4e} pushes/s, final n={n}, "
+        f"overflow=False, worklog_phase launches={launches_worklog} "
         f"({launches_worklog / 4:g} a phase), device-counted passes="
         f"{passes_worklog} ({passes_worklog / 4:g} a phase), "
         f"packed_field_gather launches={field_launches}, "
         f"added={m['added']} removed={m['removed']}")
     field_paths("5 main path", 4)
     field_phase_ms("5 main path", st, main_cfg)
-    busy = profile_phases("5 main path", st, main_cfg, first_step=4)
-    plain_step_ms, plain_rate, plain_st, _ = drive(
+    busy = profile_phases("5 main path", st, main_cfg, 4,
+                          mobility_phase_worklog, worklog_phase)
+    plain_step_ms, _, plain_rate, plain_st, _ = drive(
         main_cfg, mobility_phase_worklog_plain)
     check(plain_st.n == n, f"plain final n {plain_st.n} vs kernel {n}")
     log(f"5 main path (plain): {plain_step_ms:.2f} ms/Poisson step, "
@@ -570,31 +611,40 @@ def main() -> int:
         f"{kernel_ms:.2f} ms, median {kernel_median:.2f} ms; plain mean "
         f"{plain_ms:.2f} ms, median {plain_median:.2f} ms")
 
-    staged_pass.launches = 0
-    staged_reclaim.calls = 0
+    staged_phase.launches = 0
+    staged_phase.passes = 0
+    staged_phase.reclaims = 0
     packed_field_gather.launches = 0
     grid_ops.field_counts.reset()
-    old_ms, old_rate, old_st, old_m = drive(old_cfg, None)
-    staged_launches = staged_pass.launches
-    check(staged_launches > 0, "the main path did not launch the staged kernel")
+    old_ms, old_median, old_rate, old_st, old_m = drive(old_cfg, None)
+    staged_launches = staged_phase.launches
+    passes_staged = staged_phase.passes
+    reclaims_staged = staged_phase.reclaims
+    check(staged_launches == 4,
+          f"{staged_launches} staged launches in 4 mobility phases")
+    check(passes_staged > staged_launches,
+          "5b: the staged phases counted no chained passes")
     check(packed_field_gather.launches > 0,
           "5b did not launch the field-gather kernel")
     check(old_st.n == n, f"dynamic_old final n {old_st.n} vs dynamic {n}")
-    log(f"5b main path dynamic_old (kernel): {old_ms:.2f} ms/Poisson step, "
-        f"{old_rate:.4e} pushes/s, final n={old_st.n}, overflow=False, "
-        f"staged_pass launches={staged_launches}, "
-        f"reclaims={staged_reclaim.calls}, packed_field_gather "
+    log(f"5b main path dynamic_old (kernel): {old_ms:.2f} ms/Poisson step "
+        f"(median {old_median:.2f}), {old_rate:.4e} pushes/s, final "
+        f"n={old_st.n}, overflow=False, staged_phase launches="
+        f"{staged_launches} ({staged_launches / 4:g} a phase, one readback "
+        f"each), device-counted passes={passes_staged} "
+        f"({passes_staged / 4:g} a phase), reclaims={reclaims_staged} "
+        f"({reclaims_staged / 4:g} a phase), packed_field_gather "
         f"launches={packed_field_gather.launches}, added={old_m['added']} "
         f"removed={old_m['removed']}")
     field_paths("5b main path dynamic_old", 4)
     field_phase_ms("5b main path dynamic_old", old_st, old_cfg)
-    old_plain_ms, old_plain_rate, old_plain_st, _ = drive(
+    old_busy = profile_phases("5b main path dynamic_old", old_st, old_cfg, 4,
+                              mobility_phase_dynamic, staged_phase)
+    old_plain_ms, _, old_plain_rate, old_plain_st, _ = drive(
         old_cfg, mobility_phase_dynamic_plain, timed_steps=1)
     log(f"5b main path dynamic_old (plain): {old_plain_ms:.2f} ms/Poisson "
         f"step over 1 step, {old_plain_rate:.4e} pushes/s, "
         f"final n={old_plain_st.n}")
-    log(f"staged mobility phase at main-path step 1: kernel {staged_ms:.2f} "
-        f"ms, plain {staged_plain_ms:.2f} ms")
 
     # ---- 6. the field-gather probe ----
     for label, value in probe.run(dev):
@@ -663,15 +713,20 @@ def main() -> int:
         **bounds("worklog_phase", *worklog_work),
         "library_ms": None,
     }, {
-        "name": "staged_pass",
+        "name": "staged_phase",
         "route": "cuda",
         "source": "particle_simulation_tpu_torch/csrc/staged.cu",
         "replaces": "particle_simulation_tpu/ops/pallas/push_mcc.py:1113",
         "launches": staged_launches,
+        "passes": passes_staged,
+        "reclaims": reclaims_staged,
+        "device_busy_share": old_busy,
         "max_abs_err": staged_err,
         "ms": staged_ms,
+        "ms_median": staged_median,
+        "ms_step1": staged_k_ms[0],
         "plain_ms": staged_plain_ms,
-        **bounds("staged_pass", *staged_work),
+        **bounds("staged_phase", *staged_work),
         "library_ms": None,
     }, {
         "name": "field_gather",

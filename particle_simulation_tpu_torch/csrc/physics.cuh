@@ -18,6 +18,7 @@
 
 namespace pst {
 
+constexpr int kStatusEmpty = 0;  // constants.py STATUS_*
 constexpr int kStatusAlive = -1;
 constexpr int kStatusDead = -2;
 
@@ -39,6 +40,10 @@ PST_HD bool is_unfinished(int s) { return s == -1 || s > 0 || is_suspended(s); }
 // finished inside the staged engine's fixed point: (SUS_BASE, FIN_BASE]
 // packs the lane's stamp (ALIVE or its spawn step)
 PST_HD int encode_finished(int stamp) { return PST_FIN_BASE - (stamp + 2); }
+
+PST_HD bool is_finished(int s) { return s <= PST_FIN_BASE && s > PST_SUS_BASE; }
+
+PST_HD int decode_finished(int s) { return PST_FIN_BASE - s - 2; }
 
 PST_HD int encode_suspended(int resume, int stamp) {
   return PST_SUS_BASE - (((resume - 1) << PST_STAMP_BITS) | (stamp + 2));

@@ -71,6 +71,7 @@
 
 #include <cstdint>
 
+#include "coop.cuh"
 #include "lookback.cuh"
 #include "physics.cuh"
 #include "scan.cuh"
@@ -357,32 +358,11 @@ __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
 
 template <int D, int ROUNDS, bool BLOCK2>
 cudaError_t launch_phase(PhaseArgs& a, cudaStream_t stream) {
+  static CoopCache cache;
   const auto kernel = worklog_phase<D, ROUNDS, BLOCK2>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTableBytes);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kTile, kTableBytes);
-  }
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long resident = static_cast<long long>(per_sm) * sms;
-  const unsigned int blocks = static_cast<unsigned int>(
-      resident < a.tiles_max ? resident : a.tiles_max);
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                    dim3(kTile), args, kTableBytes,
-                                    stream);
-  // a refused launch also leaves its error as the last one: clear it
-  const cudaError_t last = cudaGetLastError();
-  return err != cudaSuccess ? err : last;
+  return launch_cooperative((const void*)kernel, kTile, kTableBytes,
+                            a.tiles_max, args, cache, stream);
 }
 
 template <int D>

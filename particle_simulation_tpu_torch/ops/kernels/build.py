@@ -23,7 +23,7 @@ import subprocess
 import time
 
 from ...cross_section import N_STEPS
-from .push_mcc import BLOCK, kernel_defines
+from .push_mcc import kernel_defines
 from .worklog import LOOKBACK_REGIONS, RESULT, TILE
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -54,22 +54,18 @@ SIGNATURES = {
         _I, _I, _I,             # depth, rounds, block2
         _P,                     # stream
     ),
-    "pst_staged_sweep": (
-        _P, _LL, _I,            # stack, stride, n
-        _P, _P,                 # stage, code
-        _P, _P, _P,             # block_sums, offsets, totals
+    "pst_staged_phase": (
+        _P, _P, _P,             # pos, vel, acc
+        _P, _P, _P, _LL,        # status, id_hi, id_lo, n0
+        _P, _P, _P,             # out_pos, out_vel, out_acc
+        _P, _P, _P, _LL,        # out_status, out_id_hi, out_id_lo, capacity
+        _P, _P, _P,             # stacks, stage, list
+        _P, _LL, _P,            # lookback, tiles_max, result
         _P,                     # table
         _F, _F, _F, _F, _F,     # dt, half_dt, size_x, size_y, size_z
         _F, _F,                 # log10_e, bucket_scale
         _U, _U, _I,             # seed, poisson_step, t_steps
         _I, _I, _I,             # depth, rounds, block2
-        _P,                     # stream
-    ),
-    "pst_staged_append": (
-        _P, _LL, _I,            # stage, stride, n_swept
-        _P, _P, _P,             # code, offsets, totals
-        _I,                     # depth
-        _P, _LL,                # stack, n_dst
         _P,                     # stream
     ),
     "pst_banded_gather": (
@@ -113,7 +109,7 @@ def nvcc_flags() -> list:
         "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
         "-fmad=false", "-Xptxas", "-v",
-        f"-DPST_N_STEPS={N_STEPS}", f"-DPST_BLOCK={BLOCK}",
+        f"-DPST_N_STEPS={N_STEPS}",
         f"-DPST_WORKLOG_TILE={TILE}",
         f"-DPST_WORKLOG_REGIONS={LOOKBACK_REGIONS}",
         f"-DPST_WORKLOG_RESULT_WORDS={len(RESULT)}", *kernel_defines(),

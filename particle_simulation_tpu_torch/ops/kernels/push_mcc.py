@@ -5,24 +5,31 @@ common arguments.
 
 Counterpart of the JAX module:
 
-* ``_mobility_kernel`` + ``_sweep_pass`` (one sweep, one ``pallas_call``)
-  and ``_append_staged`` -> ``staged_pass`` here, which launches
-  ``csrc/staged.cu`` (sweep, scan, append; the source note there says what
-  bounds it on the H100), and ``staged_pass_plain``, the same pass in
-  torch;
-* ``_staged_reclaim_jit`` -> ``staged_reclaim``;
-* ``mobility_phase_dynamic`` (passes until no lane is unfinished) ->
-  ``mobility_phase_dynamic`` here, a host loop over passes with one
-  readback each.  Like the JAX phase it is not self-compacting:
-  ``ops.step.poisson_step`` compacts after it.
+* ``_mobility_kernel`` + ``_sweep_pass`` (one sweep, one ``pallas_call``),
+  ``_append_staged`` and ``mobility_phase_dynamic``'s loop over passes ->
+  ``staged_phase`` here, which launches ``csrc/staged.cu`` once for the
+  whole phase: a persistent grid runs every pass, the reclaim and the final
+  compaction on the card (the source note there says what bounds it on the
+  H100 and what each sub-phase does about it);
+* ``mobility_phase_dynamic`` -> ``mobility_phase_dynamic`` here: buffers,
+  the one launch and the one readback of the phase;
+* the plain version, ``mobility_phase_dynamic_plain``: a host loop over
+  ``staged_pass_plain`` (the same pass in torch) with ``staged_reclaim``
+  (``_staged_reclaim_jit``), then the finished markers decoded and
+  ``population.compact``.
 
-The port's host loop reclaims dead rows before an append that would not fit
-(the JAX in-jit phase never reclaims, and its host variant only after the
-append): the staged engine keeps dead rows in place until the step's
-compaction, and at the main path one phase appends about as many children
-as it holds live particles.  So it overflows only where the live
-population and one pass's children exceed the capacity, as the work-log
-engine does.  Reclaiming is exact: draws are keyed by genealogy, not slot.
+Both phases are self-compacting: they return the compacted state, with
+``added``, ``removed`` and ``overflow`` (as the work-log engine does), and
+``reclaimed``.  The JAX phase is not: its ``poisson_step`` compacts after
+it, which gives the same state and counters.
+
+The engine reclaims dead rows before an append that would not fit (the JAX
+in-jit phase never reclaims, and its host variant only after the append):
+the staged engine keeps dead rows in place until the phase ends, and at
+the main path one phase appends about as many children as it holds live
+particles.  So it overflows only where the live population and one pass's
+children exceed the capacity, as the work-log engine does.  Reclaiming is
+exact: draws are keyed by genealogy, not slot.
 
 The encodings are the single source of truth for the CUDA kernels too:
 ``build.py`` passes them to ``nvcc`` as macros (``kernel_defines``).  The
@@ -50,6 +57,7 @@ from ...constants import STATUS_DEAD, STATUS_EMPTY
 from ...cross_section import BUCKET_SCALE, LOG10_E, N_STEPS
 from ...schedulers import pushes_info
 from ...state import SimState
+from .. import population
 from ..physics import Particles, f32, half_dt, update_particles
 from ..population import is_live
 
@@ -59,7 +67,6 @@ FIELD_NAMES = (
 )
 NF = len(FIELD_NAMES)
 
-BLOCK = 256          # threads per sweep / emit / append block (-DPST_BLOCK)
 MAX_DEPTH = 4        # spawn depths the kernels are instantiated for
 ROUNDS = (13, 20)    # Threefry round counts they are instantiated for
 
@@ -106,12 +113,18 @@ def _is_unfinished(s):
 
 
 def kernel_defines() -> list:
-    """The encodings as ``nvcc`` macro definitions."""
+    """The encodings and the staged kernel's sizes as ``nvcc`` macro
+    definitions."""
     return [
         f"-DPST_SUS_BASE={_SUS_BASE}",
         f"-DPST_FIN_BASE={_FIN_BASE}",
         f"-DPST_STAMP_BITS={_STAMP_BITS}",
         f"-DPST_INF_START={_INF_START}",
+        f"-DPST_STAGED_TILE={STAGED_TILE}",
+        f"-DPST_STAGED_ITEMS={SCAN_ITEMS}",
+        f"-DPST_STAGED_REGIONS={STAGED_REGIONS}",
+        f"-DPST_STAGED_HEADER={REGION_HEADER}",
+        f"-DPST_STAGED_RESULT_WORDS={len(STAGED_RESULT)}",
     ]
 
 
@@ -167,8 +180,51 @@ def phys_args(config: SimConfig, poisson_step: int, t_steps: int) -> tuple:
     )
 
 
+def empty_state(capacity: int, device) -> SimState:
+    """An uninitialised state of ``capacity`` slots on ``device``, n = 0:
+    the output a phase kernel writes."""
+    vec3 = lambda: torch.empty((capacity, 3), dtype=torch.float32,
+                               device=device)
+    word = lambda: torch.empty((capacity,), dtype=torch.int32, device=device)
+    return SimState(vec3(), vec3(), vec3(), word(), word(), word(), n=0)
+
+
+def state_buffers(prefix: str, st: SimState, c: int) -> list:
+    """The (name, tensor, dtype, shape) entries of a state's six tensors at
+    capacity ``c``, for ``check_buffers``."""
+    return [
+        *((f"{prefix}.{f}", getattr(st, f), torch.float32, (c, 3))
+          for f in ("pos", "vel", "acc")),
+        *((f"{prefix}.{f}", getattr(st, f), torch.int32, (c,))
+          for f in ("status", "id_hi", "id_lo")),
+    ]
+
+
+def check_buffers(what: str, device: torch.device, want: list) -> None:
+    """Raise ValueError unless every (name, tensor, dtype, shape) of
+    ``want`` is a contiguous CUDA tensor of that dtype and shape on
+    ``device``: each property over every buffer, the device last."""
+    faults = (
+        lambda t, dtype, shape: t.dtype != dtype and f"dtype {t.dtype}",
+        lambda t, dtype, shape: (tuple(t.shape) != shape
+                                 and f"shape {tuple(t.shape)}"),
+        lambda t, dtype, shape: not t.is_contiguous() and "not contiguous",
+        lambda t, dtype, shape: ((t.device.type != "cuda"
+                                  or t.device != device)
+                                 and f"on {t.device}"),
+    )
+    for fault in faults:
+        for name, t, dtype, shape in want:
+            why = fault(t, dtype, shape)
+            if why:
+                raise ValueError(
+                    f"{what}: {name} must be a contiguous {dtype} CUDA "
+                    f"tensor of shape {shape} on the state's device; it is "
+                    f"{why}")
+
+
 # ---------------------------------------------------------------------------
-# the staged engine
+# the staged engine: the plain version
 
 
 class PassTotals(NamedTuple):
@@ -179,6 +235,7 @@ class PassTotals(NamedTuple):
     appended: int    # of them, the ones that fit
     pushes: int      # lanes advanced, summed over the pass's steps
     suspended: int   # lanes left suspended
+    died: int        # lanes that died in this pass
     reclaimed: int   # dead rows dropped before the append
 
 
@@ -195,26 +252,7 @@ def staged_reclaim(stack: torch.Tensor, n: int):
     n_new = keep.numel()
     stack[:, :n_new] = stack[:, keep]
     stack[:, n_new:m] = 0
-    staged_reclaim.calls += 1
     return n_new, m - n_new
-
-
-staged_reclaim.calls = 0
-
-
-def _reclaim_for(stack, n: int, k: int, dead: int):
-    """The pre-append rule: reclaim when ``k`` children would not fit and
-    dead rows could make room (never past an overflow, whose count of
-    dropped children lives in ``n``)."""
-    c = stack.shape[1]
-    if n <= c and n + k > c and dead > 0:
-        return staged_reclaim(stack, n)
-    return n, 0
-
-
-def _pass_end(stack, n, k, pushes, suspended, reclaimed):
-    appended = max(0, min(k, stack.shape[1] - n))
-    return PassTotals(n + k, k, appended, pushes, suspended, reclaimed)
 
 
 def _stage_rec(p: Particles) -> torch.Tensor:
@@ -229,13 +267,16 @@ def staged_pass_plain(stack: torch.Tensor, n: int, table, config: SimConfig,
     """One pass in torch, on any device: ``_mobility_kernel``'s body over
     the unfinished lanes among slots [0, n) (gathered first, looped from
     their earliest start), written back in place; then the pre-append
-    reclaim and the append of the staged children at [n, n+k), depth-major
+    reclaim (when ``k`` children would not fit and dead rows could make
+    room, never past an overflow, whose count of dropped children lives in
+    ``n``) and the append of the staged children at [n, n+k), depth-major
     then slot order, dropping those at or beyond the capacity."""
-    m = min(n, stack.shape[1])
+    c = stack.shape[1]
+    m = min(n, c)
     depth_max = config.spawn_depth
     idx = torch.nonzero(_is_unfinished(stack[9, :m])).flatten()
     u = idx.numel()
-    pushes = suspended = 0
+    pushes = suspended = died = 0
     staged = stack.new_zeros((NF, 0))
     if u:
         rec = stack[:, idx]
@@ -281,68 +322,14 @@ def staged_pass_plain(stack: torch.Tensor, n: int, table, config: SimConfig,
         staged = torch.cat([stage[d][:, depth > d]
                             for d in range(depth_max)], dim=1)
         suspended = int(_is_suspended(stamp).sum())
+        died = int((stamp == STATUS_DEAD).sum())
     k = staged.shape[1]
-    dead = int((stack[9, :m] == STATUS_DEAD).sum())
-    n, reclaimed = _reclaim_for(stack, n, k, dead)
-    keep = max(0, min(k, stack.shape[1] - n))
-    stack[:, n:n + keep] = staged[:, :keep]
-    return _pass_end(stack, n, k, pushes, suspended, reclaimed)
-
-
-class _Scratch:
-    """Device buffers of the staged kernels for one phase."""
-
-    def __init__(self, c: int, depth: int, dev: torch.device):
-        n_blocks = -(-c // BLOCK)
-        self.stage = torch.empty((depth, NF, c), dtype=torch.int32, device=dev)
-        self.code = torch.empty(c, dtype=torch.int32, device=dev)
-        # per block: children at depths 0..3, pushes, suspended, dead, pad
-        # (kNCol in staged.cu); totals: the same eight, summed
-        self.block_sums = torch.empty((n_blocks, 8), dtype=torch.int64,
-                                      device=dev)
-        self.offsets = torch.empty((n_blocks, MAX_DEPTH), dtype=torch.int64,
-                                   device=dev)
-        self.totals = torch.empty(8, dtype=torch.int64, device=dev)
-
-
-def staged_pass(lib, stack: torch.Tensor, n: int, scratch: _Scratch, table,
-                config: SimConfig, poisson_step: int,
-                t_steps: int) -> PassTotals:
-    """One pass through ``csrc/staged.cu`` on the current stream: the sweep
-    and scan kernels over slots [0, n), the pass's one readback, the
-    pre-append reclaim, and the append kernel."""
-    c = stack.shape[1]
-    if (stack.device.type != "cuda" or stack.dtype != torch.int32
-            or not stack.is_contiguous() or stack.shape[0] != NF):
-        raise ValueError("the record stack must be a contiguous (12, C) "
-                         "int32 CUDA tensor")
-    if scratch.stage.shape != (config.spawn_depth, NF, c):
-        raise ValueError("staged scratch buffers do not match the stack")
-    m = min(n, c)
-    stream = torch.cuda.current_stream(stack.device).cuda_stream
-    lib.call(
-        "pst_staged_sweep",
-        stack.data_ptr(), c, m, scratch.stage.data_ptr(),
-        scratch.code.data_ptr(), scratch.block_sums.data_ptr(),
-        scratch.offsets.data_ptr(), scratch.totals.data_ptr(),
-        table.data_ptr(), *phys_args(config, poisson_step, t_steps), stream,
-    )
-    staged_pass.launches += 1
-    totals = scratch.totals.tolist()  # the one readback of the pass
-    k = sum(totals[:MAX_DEPTH])
-    pushes, suspended, dead = totals[4:7]
-    n, reclaimed = _reclaim_for(stack, n, k, dead)
-    if k and n < c:
-        lib.call(
-            "pst_staged_append",
-            scratch.stage.data_ptr(), c, m, scratch.code.data_ptr(),
-            scratch.offsets.data_ptr(), scratch.totals.data_ptr(),
-            config.spawn_depth, stack.data_ptr(), n, stream,
-        )
-    return _pass_end(stack, n, k, pushes, suspended, reclaimed)
-
-
-staged_pass.launches = 0
+    reclaimed = 0
+    if n <= c and n + k > c and bool((stack[9, :m] == STATUS_DEAD).any()):
+        n, reclaimed = staged_reclaim(stack, n)
+    appended = max(0, min(k, c - n))
+    stack[:, n:n + appended] = staged[:, :appended]
+    return PassTotals(n + k, k, appended, pushes, suspended, died, reclaimed)
 
 
 def _staged_checks(state: SimState, t_steps: int) -> None:
@@ -357,9 +344,18 @@ def _staged_checks(state: SimState, t_steps: int) -> None:
         )
 
 
-def _run_phase(state: SimState, t_steps: int, run_pass):
-    """The work-list fixed point: passes until no lane is unfinished, then
-    the finished markers decoded back to the reference's stamps."""
+def _not_converged(t_steps: int) -> RuntimeError:
+    return RuntimeError(
+        f"staged engine did not converge in {t_steps + 1} passes")
+
+
+def staged_fixed_point(state: SimState, poisson_step: int, table,
+                       config: SimConfig, t_steps: int):
+    """The work-list fixed point on the host, on any device: plain passes
+    until no lane is suspended and nothing was appended, then the finished
+    markers decoded back to the reference's stamps.  Returns the
+    uncompacted state (dead rows in place) and its counts: reclaimed,
+    pushes, passes."""
     _staged_checks(state, t_steps)
     stack = state_to_stack(state)
     n = state.n
@@ -370,10 +366,8 @@ def _run_phase(state: SimState, t_steps: int, run_pass):
         # start of pass k, so a phase needs at most t_steps + 1 passes
         passes += 1
         if passes > t_steps + 1:
-            raise RuntimeError(
-                f"staged engine did not converge in {t_steps + 1} passes"
-            )
-        tot = run_pass(stack, n)
+            raise _not_converged(t_steps)
+        tot = staged_pass_plain(stack, n, table, config, poisson_step, t_steps)
         n = tot.n
         pushes += tot.pushes
         reclaimed += tot.reclaimed
@@ -382,41 +376,176 @@ def _run_phase(state: SimState, t_steps: int, run_pass):
     s = stack[9, :m]
     stack[9, :m] = torch.where(_is_finished(s), _decode_finished(s), s)
     return stack_to_state(stack, n), {
-        "reclaimed": reclaimed, **pushes_info(pushes),
+        "reclaimed": reclaimed, "pushes": pushes, "passes": passes,
     }
+
+
+def _phase_info(n_start: int, n: int, capacity: int, n_live: int,
+                reclaimed: int, pushes: int, passes: int) -> dict:
+    """A self-compacting phase's info from its counts: ``n`` created slots
+    at the end (dropped children included), ``n_live`` rows kept, and the
+    rows its reclaims dropped, folded back into added and removed."""
+    n_clamped = min(n, capacity)
+    return {
+        "added": n_clamped - n_start + reclaimed,
+        "removed": n_clamped - n_live + reclaimed,
+        "overflow": n > capacity,
+        "reclaimed": reclaimed,
+        "passes": passes,
+        **pushes_info(pushes),
+    }
+
+
+def mobility_phase_dynamic_plain(state: SimState, poisson_step: int, table,
+                                 config: SimConfig, t_steps: int):
+    """The plain version: ``staged_fixed_point``, then
+    ``population.compact``; the same (compacted state, info) protocol as
+    the kernel."""
+    st, c = staged_fixed_point(state, poisson_step, table, config, t_steps)
+    out = population.compact(st)
+    return out, _phase_info(state.n_clamped, st.n, st.capacity, out.n,
+                            c["reclaimed"], c["pushes"], c["passes"])
+
+
+# ---------------------------------------------------------------------------
+# the staged engine: the CUDA kernel
+
+
+STAGED_TILE = 384    # lanes a sweep tile, threads a block (-DPST_STAGED_TILE)
+SCAN_ITEMS = 16      # slots a thread takes in a scan tile (-DPST_STAGED_ITEMS)
+# look-back regions that exist at once (kRegions in csrc/staged.cu, which
+# rotates them over the sub-phases: -DPST_STAGED_REGIONS); each starts with
+# a ticket and a counter (-DPST_STAGED_HEADER)
+STAGED_REGIONS = 3
+REGION_HEADER = 2
+# the words the kernel leaves in ``result``, in the order of kRes* in
+# csrc/staged.cu (the build passes their count and the kernel checks it)
+STAGED_RESULT = ("n", "n_live", "pushes", "passes", "reclaimed", "reclaims",
+                 "stuck", "blocks")
+
+
+def staged_scratch_shapes(capacity: int, depth: int) -> dict:
+    """Shapes of the phase's scratch buffers: two record stacks (the
+    reclaim compacts one into the other), two sets of staging regions of C
+    children a depth and two work lists (a pass reads one and writes the
+    other), the look-back words (per region a ticket, a counter, then a
+    word per stream and sweep tile of C slots: a stream per depth and one
+    for the suspended lanes) and the result words.  The number of passes
+    sizes nothing."""
+    tiles = -(-capacity // STAGED_TILE)
+    return {
+        "stacks": (2, NF, capacity),
+        "stage": (2, depth, NF, capacity),
+        "list": (2, capacity),
+        "lookback": (STAGED_REGIONS, REGION_HEADER + (depth + 1) * tiles),
+        "result": (len(STAGED_RESULT),),
+    }
+
+
+class StagedBuffers(NamedTuple):
+    """What the kernel writes: the output state and its scratch."""
+
+    out: SimState
+    stacks: torch.Tensor    # (2, 12, C) int32
+    stage: torch.Tensor     # (2, depth, 12, C) int32
+    list: torch.Tensor      # (2, C) int32
+    lookback: torch.Tensor  # (regions, header + (depth + 1) * tiles) int64
+    result: torch.Tensor    # (len(STAGED_RESULT),) int64
+
+
+_SCRATCH_DTYPES = {"stacks": torch.int32, "stage": torch.int32,
+                   "list": torch.int32, "lookback": torch.int64,
+                   "result": torch.int64}
+
+
+def staged_buffers(state: SimState, config: SimConfig) -> StagedBuffers:
+    """Uninitialised buffers for one phase on the state's device (the
+    kernel writes or zeroes what it reads)."""
+    shapes = staged_scratch_shapes(state.capacity, config.spawn_depth)
+    return StagedBuffers(empty_state(state.capacity, state.device), **{
+        name: torch.empty(shape, dtype=_SCRATCH_DTYPES[name],
+                          device=state.device)
+        for name, shape in shapes.items()
+    })
+
+
+def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
+                 config: SimConfig, poisson_step: int, t_steps: int) -> None:
+    """Launch one whole staged mobility phase on the current stream: the
+    ``state.n`` created slots of ``state`` (read, never written) through
+    every pass, reclaim and append to the compacted output ``bufs.out``;
+    ``bufs.result`` receives the ``STAGED_RESULT`` words.  Raises before
+    any launch on a buffer the kernel does not take."""
+    shapes = staged_scratch_shapes(state.capacity, config.spawn_depth)
+    check_buffers("staged phase", state.device, [
+        *state_buffers("state", state, state.capacity),
+        *state_buffers("out", bufs.out, state.capacity),
+        *((name, getattr(bufs, name), _SCRATCH_DTYPES[name], shape)
+          for name, shape in shapes.items()),
+    ])
+    out = bufs.out
+    lib.call(
+        "pst_staged_phase",
+        state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
+        state.status.data_ptr(), state.id_hi.data_ptr(),
+        state.id_lo.data_ptr(), state.n,
+        out.pos.data_ptr(), out.vel.data_ptr(), out.acc.data_ptr(),
+        out.status.data_ptr(), out.id_hi.data_ptr(), out.id_lo.data_ptr(),
+        state.capacity, bufs.stacks.data_ptr(), bufs.stage.data_ptr(),
+        bufs.list.data_ptr(), bufs.lookback.data_ptr(),
+        (bufs.lookback.shape[1] - REGION_HEADER) // (config.spawn_depth + 1),
+        bufs.result.data_ptr(), table.data_ptr(),
+        *phys_args(config, poisson_step, t_steps),
+        torch.cuda.current_stream(state.device).cuda_stream,
+    )
+    staged_phase.launches += 1
+
+
+staged_phase.launches = 0
+staged_phase.passes = 0    # passes the kernel counted, over every phase
+staged_phase.reclaims = 0  # reclaims the kernel made, over every phase
+staged_phase.last = {}     # the last phase's STAGED_RESULT words
+
+
+def _mobility_phase_dynamic_cuda(state: SimState, poisson_step: int, table,
+                                 config: SimConfig, t_steps: int):
+    from . import build
+
+    _staged_checks(state, t_steps)
+    check_kernel_args(config, table, state.device)
+    if state.n_clamped == 0:
+        return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), \
+            _phase_info(0, state.n, state.capacity, 0, 0, 0, 0)
+    bufs = staged_buffers(state, config)
+    staged_phase(build.load(), state, bufs, table, config, poisson_step,
+                 t_steps)
+    r = dict(zip(STAGED_RESULT, bufs.result.tolist()))  # the one readback
+    staged_phase.passes += r["passes"]
+    staged_phase.reclaims += r["reclaims"]
+    staged_phase.last = r
+    if r["stuck"]:
+        raise _not_converged(t_steps)
+    return bufs.out._replace(n=r["n_live"]), _phase_info(
+        state.n_clamped, r["n"], state.capacity, r["n_live"],
+        r["reclaimed"], r["pushes"], r["passes"])
 
 
 def mobility_phase_dynamic(state: SimState, poisson_step: int, table,
                            config: SimConfig, t_steps: int):
-    """Work-list fixed point over staged sweep passes; returns the
-    uncompacted state and info (pushes_lo, pushes_hi, reclaimed).  A CPU
-    state takes the plain passes; a CUDA state launches the kernels or
-    raises."""
+    """Work-list fixed point over staged passes; returns the compacted
+    state and info (added, removed, overflow, reclaimed, passes, pushes_lo,
+    pushes_hi).  A CPU state takes the plain version; a CUDA state
+    launches the kernel or raises."""
     if state.device.type == "cpu":
         return mobility_phase_dynamic_plain(
             state, poisson_step, table, config, t_steps
         )
     if state.device.type != "cuda":
         raise ValueError(f"no staged engine for device {state.device}")
-    from . import build
-
-    check_kernel_args(config, table, state.device)
-    lib = build.load()
-    scratch = _Scratch(state.capacity, config.spawn_depth, state.device)
-
-    def run_pass(stack, n):
-        return staged_pass(lib, stack, n, scratch, table, config,
-                           poisson_step, t_steps)
-
-    return _run_phase(state, t_steps, run_pass)
+    return _mobility_phase_dynamic_cuda(
+        state, poisson_step, table, config, t_steps
+    )
 
 
-def mobility_phase_dynamic_plain(state: SimState, poisson_step: int, table,
-                                 config: SimConfig, t_steps: int):
-    """The same host loop over ``staged_pass_plain``, on any device."""
-
-    def run_pass(stack, n):
-        return staged_pass_plain(stack, n, table, config, poisson_step,
-                                 t_steps)
-
-    return _run_phase(state, t_steps, run_pass)
+mobility_phase_dynamic.self_compacting = True
+mobility_phase_dynamic_plain.self_compacting = True

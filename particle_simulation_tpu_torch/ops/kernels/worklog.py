@@ -38,7 +38,10 @@ from ...config import SimConfig
 from ...schedulers import mobility_phase_naive, pushes_info
 from ...state import SimState
 from .. import population
-from .push_mcc import NF, check_kernel_args, phys_args
+from .push_mcc import (
+    NF, check_buffers, check_kernel_args, empty_state, phys_args,
+    state_buffers,
+)
 
 # records a tile and threads a block of the phase kernel (-DPST_WORKLOG_TILE)
 TILE = 384
@@ -93,12 +96,8 @@ def phase_buffers(state: SimState, config: SimConfig) -> PhaseBuffers:
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    out = SimState(
-        pos=empty((c, 3), torch.float32), vel=empty((c, 3), torch.float32),
-        acc=empty((c, 3), torch.float32), status=empty((c,), torch.int32),
-        id_hi=empty((c,), torch.int32), id_lo=empty((c,), torch.int32), n=0,
-    )
-    return PhaseBuffers(out, empty(shapes["logs"], torch.int32),
+    return PhaseBuffers(empty_state(c, dev),
+                        empty(shapes["logs"], torch.int32),
                         empty(shapes["lookback"], torch.int64),
                         empty(shapes["result"], torch.int64))
 
@@ -107,37 +106,12 @@ def _check_buffers(state: SimState, bufs: PhaseBuffers,
                    config: SimConfig) -> None:
     c = state.capacity
     shapes = scratch_shapes(config, c)
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
-    want = [
-        *((f"state.{f}", getattr(state, f), f32, (c, 3))
-          for f in ("pos", "vel", "acc")),
-        *((f"state.{f}", getattr(state, f), i32, (c,))
-          for f in ("status", "id_hi", "id_lo")),
-        *((f"out.{f}", getattr(bufs.out, f), f32, (c, 3))
-          for f in ("pos", "vel", "acc")),
-        *((f"out.{f}", getattr(bufs.out, f), i32, (c,))
-          for f in ("status", "id_hi", "id_lo")),
-        ("logs", bufs.logs, i32, shapes["logs"]),
-        ("lookback", bufs.lookback, i64, shapes["lookback"]),
-        ("result", bufs.result, i64, shapes["result"]),
-    ]
-    faults = (  # each property over every buffer, the device last
-        lambda t, dtype, shape: t.dtype != dtype and f"dtype {t.dtype}",
-        lambda t, dtype, shape: (tuple(t.shape) != shape
-                                 and f"shape {tuple(t.shape)}"),
-        lambda t, dtype, shape: not t.is_contiguous() and "not contiguous",
-        lambda t, dtype, shape: ((t.device.type != "cuda"
-                                  or t.device != state.device)
-                                 and f"on {t.device}"),
-    )
-    for fault in faults:
-        for name, t, dtype, shape in want:
-            why = fault(t, dtype, shape)
-            if why:
-                raise ValueError(
-                    f"work-log phase: {name} must be a contiguous {dtype} "
-                    f"CUDA tensor of shape {shape} on the state's device; "
-                    f"it is {why}")
+    check_buffers("work-log phase", state.device, [
+        *state_buffers("state", state, c), *state_buffers("out", bufs.out, c),
+        ("logs", bufs.logs, torch.int32, shapes["logs"]),
+        ("lookback", bufs.lookback, torch.int64, shapes["lookback"]),
+        ("result", bufs.result, torch.int64, shapes["result"]),
+    ])
 
 
 def worklog_phase(lib, state: SimState, bufs: PhaseBuffers, table,

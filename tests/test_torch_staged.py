@@ -3,7 +3,9 @@ the CPU against the JAX package's: its status encodings, one sweep pass
 against ``_sweep_pass`` (the Pallas kernel in interpret mode, as the JAX
 package runs it on the CPU), whole Poisson steps against JAX
 ``dynamic_old`` and JAX ``naive``, and the staged reclaim against
-``_staged_reclaim_jit``.  Tolerance: exact (bit patterns, ids, counters).
+``_staged_reclaim_jit``; then what the kernel's design rests on: the
+self-compacting protocol, the running DEAD count, the scratch sizes and
+the wrapper's checks.  Tolerance: exact (bit patterns, ids, counters).
 Kernel-vs-plain on the card: tests/test_torch_staged_kernels.py."""
 
 import jax
@@ -28,6 +30,7 @@ from particle_simulation_tpu_torch.ops.step import grid_phase, poisson_step
 from particle_simulation_tpu_torch.runtime import (
     multiset_with_ids, sorted_particle_array,
 )
+from particle_simulation_tpu_torch.schedulers import pushes_info
 from particle_simulation_tpu_torch.state import setup_particles
 
 from test_torch_step import (
@@ -146,6 +149,7 @@ def test_dynamic_old_reclaims_where_naive_overflows():
         reclaimed.append(info["reclaimed"])
         return state, info
 
+    phase.self_compacting = tpm.mobility_phase_dynamic.self_compacting
     t = load_table(bundled_paths()[1], "cpu")
     state = setup_particles(cfg, device="cpu")
     port = []
@@ -201,13 +205,14 @@ def test_cpu_state_takes_the_plain_version():
     cfg = SimConfig(**SMALL, scheduler="dynamic_old")
     t = load_table(bundled_paths()[1], "cpu")
     st = grid_phase(setup_particles(cfg, device="cpu"), cfg)
-    before = tpm.staged_pass.launches
+    before = tpm.staged_phase.launches
     a, ai = tpm.mobility_phase_dynamic(st, 0, t, cfg, 6)
     b, bi = tpm.mobility_phase_dynamic_plain(st, 0, t, cfg, 6)
-    assert tpm.staged_pass.launches == before
-    assert ai == bi and a.n == b.n > st.n
+    assert tpm.staged_phase.launches == before
+    assert ai == bi and a.n == b.n and ai["added"] > 0
     assert all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
-    assert not getattr(tpm.mobility_phase_dynamic, "self_compacting", False)
+    assert tpm.mobility_phase_dynamic.self_compacting
+    assert tpm.mobility_phase_dynamic_plain.self_compacting
     with pytest.raises(ValueError, match="no staged engine"):
         tpm.mobility_phase_dynamic(setup_particles(cfg, device="meta"), 0,
                                    None, cfg, 6)
@@ -219,3 +224,111 @@ def test_stamp_domain_is_checked():
     with pytest.raises(ValueError, match="stamp domain"):
         tpm.mobility_phase_dynamic(st, 0, load_table(device="cpu"), cfg,
                                    32766)
+
+
+CHURN_RECLAIM = dict(SIZES["mid"], capacity=16384)
+
+
+def test_plain_phase_is_compact_of_the_fixed_point():
+    """The self-compacting plain phase equals ``population.compact`` of the
+    host fixed point's decoded output, bit for bit, and ``poisson_step``
+    gives the same metrics (added and removed with the reclaimed rows
+    folded in) through either protocol.  Capacity 16,384: reclaims."""
+    cfg = SimConfig(**CHURN_RECLAIM, scheduler="dynamic_old")
+    t = load_table(bundled_paths()[1], "cpu")
+    reclaimed = []
+
+    def uncompacted(*args):
+        st, c = tpm.staged_fixed_point(*args)
+        reclaimed.append(c["reclaimed"])
+        return st, {"reclaimed": c["reclaimed"], **pushes_info(c["pushes"])}
+
+    a = b = setup_particles(cfg, device="cpu")
+    for s in range(2):
+        a, am = poisson_step(a, s, t, cfg, phase=uncompacted)
+        b, bm = poisson_step(b, s, t, cfg,
+                             phase=tpm.mobility_phase_dynamic_plain)
+        assert am == bm, s
+        assert a.n == b.n
+        assert all(torch.equal(x, y) for x, y in zip(a[:6], b[:6])), s
+    assert sum(reclaimed) > 0
+
+
+def test_running_dead_count_equals_recount():
+    """The kernel tests its reclaim rule on a running DEAD count: the
+    input's, plus each pass's new deaths, 0 after a reclaim.  Over the
+    plain passes of a phase with reclaims it equals the recount of DEAD
+    rows below min(n, C) after every pass."""
+    cfg = SimConfig(**CHURN_RECLAIM, scheduler="dynamic_old")
+    t = load_table(bundled_paths()[1], "cpu")
+    st = grid_phase(setup_particles(cfg, device="cpu"), cfg)
+    stack, n = tpm.state_to_stack(st), st.n
+
+    def recount():
+        return int((stack[9, :min(n, cfg.capacity)] == STATUS_DEAD).sum())
+
+    dead, reclaims, passes = recount(), 0, 0
+    while True:
+        tot = tpm.staged_pass_plain(stack, n, t, cfg, 0, cfg.poisson_timestep)
+        n, passes = tot.n, passes + 1
+        dead = 0 if tot.reclaimed else dead + tot.died
+        reclaims += tot.reclaimed > 0
+        assert dead == recount(), passes
+        if not (tot.suspended or tot.appended):
+            break
+    assert reclaims > 0 and passes > 2
+
+
+@pytest.mark.parametrize("capacity,depth", [
+    (2_000_000, 2),  # the main path
+    (4096, 1),
+    (1000, 4),
+    (384, 3),
+])
+def test_staged_scratch_shapes(capacity, depth):
+    """Two record stacks, two sets of staging regions of C children a
+    depth, two work lists, three rotating look-back regions (a ticket, a
+    counter, then a word per stream and sweep tile: one stream a depth and
+    one for the suspended lanes) and the eight result words."""
+    tiles = -(-capacity // tpm.STAGED_TILE)
+    assert (tiles - 1) * tpm.STAGED_TILE < capacity <= tiles * tpm.STAGED_TILE
+    assert tpm.staged_scratch_shapes(capacity, depth) == {
+        "stacks": (2, 12, capacity),
+        "stage": (2, depth, 12, capacity),
+        "list": (2, capacity),
+        "lookback": (3, 2 + (depth + 1) * tiles),
+        "result": (8,),
+    }
+    flags = build.nvcc_flags()
+    for name, value in (("TILE", tpm.STAGED_TILE), ("ITEMS", tpm.SCAN_ITEMS),
+                        ("REGIONS", tpm.STAGED_REGIONS),
+                        ("HEADER", tpm.REGION_HEADER),
+                        ("RESULT_WORDS", len(tpm.STAGED_RESULT))):
+        assert f"-DPST_STAGED_{name}={value}" in flags
+
+
+@pytest.mark.parametrize("bad,why", [
+    (lambda st, b: (st, b), "on cpu"),
+    (lambda st, b: (st, b._replace(stage=b.stage.float())), "dtype"),
+    (lambda st, b: (st, b._replace(result=b.result.int())), "dtype"),
+    (lambda st, b: (st, b._replace(out=b.out._replace(
+        status=b.out.status.long()))), "dtype"),
+    (lambda st, b: (st, b._replace(stage=b.stage[:, :1])), "shape"),
+    (lambda st, b: (st, b._replace(stacks=b.stacks[:, :, :-1])), "shape"),
+    (lambda st, b: (st, b._replace(list=b.list[:, ::2])), "shape"),
+    (lambda st, b: (st, b._replace(
+        lookback=b.lookback.t().contiguous().t())), "not contiguous"),
+    (lambda st, b: (st._replace(vel=st.vel.t().contiguous().t()), b),
+     "not contiguous"),
+])
+def test_staged_phase_checks_buffers_before_any_launch(bad, why):
+    """No library is given: a check that let the call through would fail
+    on it, not raise ValueError."""
+    cfg = SimConfig(**SMALL, scheduler="dynamic_old", spawn_depth=2)
+    st = setup_particles(cfg, device="cpu")
+    st, bufs = bad(st, tpm.staged_buffers(st, cfg))
+    before = tpm.staged_phase.launches
+    with pytest.raises(ValueError, match=why):
+        tpm.staged_phase(None, st, bufs, load_table(bundled_paths()[1], "cpu"),
+                         cfg, 0, 6)
+    assert tpm.staged_phase.launches == before
