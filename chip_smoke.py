@@ -58,7 +58,28 @@ Phases, each printing one line or a few:
    its plain twin, bitwise (row_compact; sublane_gather in both variants;
    lookup_bench in all three); then, with the launch counts at 0, the
    probe's timings, which are its path: the kernel, its twin and the
-   PyTorch call where one exists.
+   PyTorch call where one exists;
+8. the entry points as a user calls them, each with the launch counts at
+   0 before it and read after it (every kernel it reaches must launch):
+   (a) ``cli.main`` in mode ``test`` at the main path's 1M electrons, grid
+       256^3, T=100, 2 Poisson steps, at a capacity where ``naive`` (which
+       keeps the step's dead rows) does not overflow: four "success"
+       lines, and ``dynamic`` equal to ``dynamic_old`` (multiset with ids,
+       per-step counters);
+   (b) ``python -m particle_simulation_tpu_torch`` modes 30 and 33 as
+       subprocesses with npz checkpoints: the PNGs and checkpoints at the
+       expected steps, every PNG decoded, ``checkpoint.resume_run`` from
+       step 2 equal to the uninterrupted run, mode 33 equal to mode 30;
+   (c) ``benchmarks.run_benchmark("full")`` for ``dynamic`` (T 10-1000)
+       and ``dynamic_old`` (T <= 100) into a temporary CSV: the
+       reference's header, each row's final n within 0.1% of the TPU's
+       (out/data/mobility_timesteps_nodet.csv) up to T=100 and within 1%
+       from T=200 (the TPU's float32 arithmetic is not the H100's, so the
+       runs are alike in their statistics, not bit for bit), and the two
+       engines equal at every shared T (final n, per-step counters, a
+       digest of the final multiset with ids).  Per row: the ms per
+       Poisson step, pushes/s, the field paths and the peak memory.
+   The tracked CSVs must be byte-identical afterwards.
 
 Any failed check raises, so the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}; the line before it lists
@@ -88,6 +109,20 @@ MAIN = dict(init_n=1_000_000, capacity=2_000_000, poisson_timestep=100,
 # appends about 10x the live population (the BASELINE.md config-4 churn)
 CHURN = dict(init_n=65_536, capacity=262_144, poisson_timestep=20,
              grid_size=(64, 64, 64), scheduler="dynamic")
+# 8: the entry points.  (a) at capacity 4M: the naive cadence keeps the
+# step's dead rows and overflows 2M at the main path's step 1
+TEST_ARGV = ["test", "0", "1000000", "2", "256", "4000000", "0", "100",
+             "grid=256"]
+CLI_ARGV = ["30", "1", "1000000", "3", "256", "2000000", "0", "100",
+            "grid=256"]
+SWEEP = dict(profile="full", only_schedulers=["dynamic", "dynamic_old"],
+             max_t={"dynamic_old": 100})
+TPU_CSV = "out/data/mobility_timesteps_nodet.csv"
+TRACKED_CSVS = (TPU_CSV, "out/data/quick_sweep_tpu.csv")
+# relative bound on final n against the TPU's, by T: 0.1% up to T=100; the
+# runs at T >= 200 part further (0.14-0.67%: PERF.md), where 1% stays
+# below the spread between independent seeds (probes/sweep_sensitivity.py)
+SWEEP_TOLERANCE = ((100, 1e-3), (1000, 1e-2))
 
 
 def log(msg: str) -> None:
@@ -97,6 +132,283 @@ def log(msg: str) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def multiset_digest(state) -> tuple:
+    """An order-independent digest of the live particles' every field, ids
+    included (int32 bit patterns): two sums over the rows of a row hash
+    modulo 2^31 - 1, computed on the state's device."""
+    import torch
+
+    n = state.n_clamped
+    words = torch.cat([
+        state.pos[:n].contiguous().view(torch.int32),
+        state.vel[:n].contiguous().view(torch.int32),
+        state.acc[:n].contiguous().view(torch.int32),
+        state.status[:n, None], state.id_hi[:n, None], state.id_lo[:n, None],
+    ], 1).to(torch.int64)
+    m = (1 << 31) - 1
+    out = []
+    for base in (1_000_003, 998_244_353):
+        mult = torch.tensor([pow(base, j + 1, m) for j in range(12)],
+                            dtype=torch.int64, device=words.device)
+        rows = ((words % m) * mult % m).sum(1) % m
+        out.append(int(rows.sum()))
+    return n, *out
+
+
+def entry_points(dev, repo: str) -> dict:
+    """Phase 8 (the module docstring): the entry points as a user calls
+    them.  Returns each kernel's launches over 8a-8c."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from particle_simulation_tpu_torch import (
+        benchmarks, checkpoint, cli, testing,
+    )
+    from particle_simulation_tpu_torch.observability import (
+        CSV_HEADER, read_png,
+    )
+    from particle_simulation_tpu_torch.ops import grid as grid_ops
+    from particle_simulation_tpu_torch.ops.kernels.field import (
+        packed_field_gather,
+    )
+    from particle_simulation_tpu_torch.ops.kernels.push_mcc import staged_phase
+    from particle_simulation_tpu_torch.ops.kernels.worklog import worklog_phase
+    from particle_simulation_tpu_torch.runtime import multiset_with_ids
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    kernels = {"worklog_phase": worklog_phase, "staged_phase": staged_phase,
+               "field_gather": packed_field_gather}
+    total = dict.fromkeys(kernels, 0)
+
+    def counted(tag, needed, fn):
+        """``fn()`` with the launch counts at 0 before it, read after it;
+        each kernel in ``needed`` must have launched."""
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        got = {name: k.launches for name, k in kernels.items()}
+        for name, n in got.items():
+            total[name] += n
+        log(f"8{tag} launches: {got}")
+        if on_card:
+            check(all(got[k] > 0 for k in needed),
+                  f"8{tag}: a kernel of its path was not launched: {got}")
+        return out
+
+    def sha(path):
+        with open(os.path.join(repo, path), "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    tracked = {p: sha(p) for p in TRACKED_CSVS}
+
+    def counters(run):
+        return [(m.n, m.added, m.removed, m.overflow, m.pushes)
+                for m in run.steps]
+
+    # ---- 8a. the test mode ----
+    t0 = time.perf_counter()
+    runs = {}
+    run_pic = testing.run_pic
+
+    def keep_first(cfg, *args, **kw):
+        run = run_pic(cfg, *args, **kw)
+        runs.setdefault(cfg.scheduler, run)  # sync: the base run
+        return run
+
+    out = io.StringIO()
+
+    def test_mode():
+        with contextlib.redirect_stdout(out):
+            return cli.main(TEST_ARGV)
+
+    testing.run_pic = keep_first
+    try:
+        rc = counted("a", kernels, test_mode)
+    finally:
+        testing.run_pic = run_pic
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        if line:
+            log(f"  8a | {line}")
+    check(rc == 0, f"8a: the test mode returned {rc}")
+    check(sum(": success (" in line for line in lines) == 4,
+          "8a: not four success lines")
+    for sched, run in runs.items():
+        check(not any(m.overflow for m in run.steps),
+              f"8a: {sched} overflowed at capacity {TEST_ARGV[5]}")
+        log(f"  8a {sched}: final n {run.final_n}, device time "
+            f"{run.device_time_ms:.1f} ms over {len(run.steps)} steps")
+    dyn, old = runs["dynamic"], runs["dynamic_old"]
+    check(counters(dyn) == counters(old),
+          f"8a: dynamic counters {counters(dyn)} vs dynamic_old "
+          f"{counters(old)}")
+    check(np.array_equal(multiset_with_ids(dyn.state),
+                         multiset_with_ids(old.state)),
+          "8a: dynamic and dynamic_old multisets differ")
+    runs.clear()
+    log(f"8a: test mode at capacity {TEST_ARGV[5]} (init n {TEST_ARGV[2]}, "
+        f"{TEST_ARGV[8]}, T={TEST_ARGV[7]}): four successes; dynamic "
+        "equal to dynamic_old (multiset with ids, per-step counters); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 8b. modes 30 and 33 as subprocesses, checkpoints, resume ----
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pst_entry_points_")
+    procs = {}
+    try:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (repo, env.get("PYTHONPATH")) if p)
+        steps = int(CLI_ARGV[3])
+        # mode 33 logs only its first and final states (verbose = steps)
+        cadence = {CLI_ARGV[0]: int(CLI_ARGV[1]), "33": steps}
+        for mode, verbose in cadence.items():
+            cwd = os.path.join(tmp, mode)
+            os.makedirs(cwd)
+            argv = [mode, str(verbose), *CLI_ARGV[2:],
+                    f"ckpt={os.path.join(cwd, 'ckpt')}"]
+            log(f"  8b: python -m particle_simulation_tpu_torch "
+                f"{' '.join(argv)}")
+            procs[mode] = subprocess.Popen(
+                [sys.executable, "-m", "particle_simulation_tpu_torch", *argv],
+                cwd=cwd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        for mode, proc in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            for line in text.splitlines()[-8:]:
+                log(f"  8b {mode} | {line}")
+            check(proc.returncode == 0,
+                  f"8b: mode {mode} exited {proc.returncode}")
+        for mode, verbose in cadence.items():
+            want = list(range(0, steps + 1, verbose))
+            ckpt = os.path.join(tmp, mode, "ckpt")
+            pngs = os.path.join(tmp, mode, "out", "visualization")
+            check(sorted(os.listdir(ckpt))
+                  == [f"step_{t:06d}.npz" for t in want],
+                  f"8b: mode {mode} checkpoints {sorted(os.listdir(ckpt))}")
+            check(sorted(os.listdir(pngs))
+                  == [f"test_{t:04d}.png" for t in want],
+                  f"8b: mode {mode} PNGs {sorted(os.listdir(pngs))}")
+            for name in sorted(os.listdir(pngs)):
+                img = read_png(os.path.join(pngs, name))
+                check(img.shape == (512, 512, 3) and img.any(),
+                      f"8b: {name} of mode {mode} is {img.shape}, blank "
+                      f"{not img.any()}")
+            log(f"  8b mode {mode}: checkpoints and PNGs at steps {want}, "
+                "every PNG decoded")
+        ckpt = os.path.join(tmp, CLI_ARGV[0], "ckpt")
+        final, step = checkpoint.load_npz(
+            os.path.join(ckpt, f"step_{steps:06d}.npz"), dev)
+        check(step == steps, f"8b: final checkpoint at step {step}")
+        resume_dir = os.path.join(tmp, "resume")
+        os.makedirs(resume_dir)
+        shutil.copy(os.path.join(ckpt, "step_000002.npz"), resume_dir)
+        cfg = cli.parse_args(CLI_ARGV).config
+        resumed = counted(
+            "b", ("worklog_phase", "field_gather"),
+            lambda: checkpoint.resume_run(cfg, resume_dir, device=dev))
+        check(len(resumed.steps) == steps - 2
+              and resumed.final_n == final.n
+              and np.array_equal(multiset_with_ids(resumed.state),
+                                 multiset_with_ids(final)),
+              f"8b: the run resumed at step 2 (n {resumed.final_n}) differs "
+              f"from the uninterrupted one (n {final.n})")
+        old, _ = checkpoint.load_npz(
+            os.path.join(tmp, "33", "ckpt", f"step_{steps:06d}.npz"), dev)
+        check(np.array_equal(multiset_with_ids(old),
+                             multiset_with_ids(final)),
+              "8b: mode 33's final state differs from mode 30's")
+        log(f"8b: modes 30 and 33 exit 0; the resume from step 2 equals the "
+            f"uninterrupted run (n {final.n}, multiset with ids); mode 33 "
+            f"equals mode 30; {time.perf_counter() - t0:.1f} s")
+        del final, old, resumed
+
+        # ---- 8c. the canonical sweep ----
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.empty_cache()
+        seen = {}
+        bench_run_pic = benchmarks.run_pic
+
+        def measured(cfg, *args, **kw):
+            grid_ops.field_counts.reset()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            run = bench_run_pic(cfg, *args, **kw)
+            peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+            seen[id(run)] = (grid_ops.field_counts.as_dict(), peak,
+                             multiset_digest(run.state))
+            return run
+
+        out_csv = os.path.join(tmp, "sweep.csv")
+        benchmarks.run_pic = measured
+        try:
+            sweep = counted("c", kernels, lambda: benchmarks.run_benchmark(
+                out_csv=out_csv, device=dev, **SWEEP))
+        finally:
+            benchmarks.run_pic = bench_run_pic
+        with open(out_csv) as f:
+            header = f.readline().strip()
+        check(header == CSV_HEADER, f"8c: CSV header {header!r}")
+        tpu = {}
+        with open(os.path.join(repo, TPU_CSV)) as f:
+            for line in f.readlines()[1:]:
+                parts = line.strip().split(",")
+                tpu.setdefault((parts[0], int(parts[3])), int(parts[7]))
+        by_key, off = {}, []
+        for run in sweep:
+            c = run.config
+            paths, peak, digest = seen[id(run)]
+            ref = tpu[(run.function, c.poisson_timestep)]
+            rel = (run.final_n - ref) / ref
+            bound = next(b for t_max, b in SWEEP_TOLERANCE
+                         if c.poisson_timestep <= t_max)
+            if abs(rel) > bound:
+                off.append((run.function, c.poisson_timestep, rel, bound))
+            ms = run.device_time_ms / len(run.steps)
+            rate = sum(m.pushes for m in run.steps) / (
+                run.device_time_ms / 1e3)
+            memory = f"{peak / 1e9:.2f} GB" if peak is not None else "-"
+            log(f"  8c {c.scheduler:11s} T={c.poisson_timestep:4d} final n "
+                f"{run.final_n} (TPU {ref}, {run.final_n - ref:+d}, "
+                f"{100 * rel:+.4f}%, bound {100 * bound:g}%) device_time_ms "
+                f"{run.device_time_ms:.1f} "
+                f"({ms:.2f} ms a Poisson step) {rate:.4e} pushes/s, peak "
+                f"memory {memory}, field phases {paths}")
+            by_key[(c.scheduler, c.poisson_timestep)] = (
+                run.final_n, counters(run), digest)
+        shared = sorted(t for s, t in by_key if s == "dynamic_old")
+        check(shared, "8c: no dynamic_old row")
+        for t in shared:
+            check(by_key[("dynamic", t)] == by_key[("dynamic_old", t)],
+                  f"8c T={t}: dynamic and dynamic_old differ")
+        check(not off, f"8c: final n off the TPU's beyond its bound "
+              f"(function, T, relative difference, bound): {off}")
+        log(f"8c: {len(sweep)} rows, each final n within its bound of the "
+            f"TPU's ((largest T, bound): {SWEEP_TOLERANCE}); dynamic equal to "
+            f"dynamic_old at T={shared} (final n, per-step counters, "
+            f"multiset digest); {time.perf_counter() - t0:.1f} s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check({p: sha(p) for p in TRACKED_CSVS} == tracked,
+          "8: a tracked CSV changed")
+    log(f"8: entry points done in {time.perf_counter() - t_phase:.1f} s; "
+        "the tracked CSVs unchanged")
+    return total
 
 
 def main() -> int:
@@ -697,12 +1009,16 @@ def main() -> int:
             "library_ms": timing.library_ms,
         })
 
+    # ---- 8. the entry points ----
+    entry = entry_points(dev, os.path.dirname(os.path.abspath(__file__)))
+
     log(json.dumps({"kernels": [{
         "name": "worklog_phase",
         "route": "cuda",
         "source": "particle_simulation_tpu_torch/csrc/worklog.cu",
         "replaces": "particle_simulation_tpu/ops/pallas/worklog.py:302",
         "launches": launches_worklog,
+        "launches_entry_points": entry["worklog_phase"],
         "passes": passes_worklog,
         "device_busy_share": busy,
         "max_abs_err": max_err,
@@ -718,6 +1034,7 @@ def main() -> int:
         "source": "particle_simulation_tpu_torch/csrc/staged.cu",
         "replaces": "particle_simulation_tpu/ops/pallas/push_mcc.py:1113",
         "launches": staged_launches,
+        "launches_entry_points": entry["staged_phase"],
         "passes": passes_staged,
         "reclaims": reclaims_staged,
         "device_busy_share": old_busy,
@@ -734,6 +1051,7 @@ def main() -> int:
         "source": "particle_simulation_tpu_torch/csrc/field.cu",
         "replaces": "scripts/microbench_fieldgather.py:40",
         "launches": field_launches,
+        "launches_entry_points": entry["field_gather"],
         "max_abs_err": field_err,
         "ms": field_ms,
         "plain_ms": field_plain_ms,

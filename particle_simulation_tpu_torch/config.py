@@ -96,6 +96,14 @@ class SimConfig:
         return dataclasses.replace(self, **kw)
 
 
+SCHEDULER_MODES = {
+    # reference CLI mode string -> scheduler name (src/main.cu:26-40)
+    "30": "dynamic",
+    "31": "sync",
+    "32": "naive",
+    "33": "dynamic_old",
+}
+
 # model knob -> the only value the port runs so far
 _PORTED_MODEL = {
     "integrator": "leapfrog",

@@ -13,16 +13,23 @@ PKG = os.path.dirname(particle_simulation_tpu_torch.__file__)
 REPO = os.path.dirname(PKG)
 MODULES = [
     "particle_simulation_tpu_torch",
+    "particle_simulation_tpu_torch.benchmarks",
+    "particle_simulation_tpu_torch.checkpoint",
+    "particle_simulation_tpu_torch.cli",
     "particle_simulation_tpu_torch.config",
     "particle_simulation_tpu_torch.constants",
     "particle_simulation_tpu_torch.cross_section",
     "particle_simulation_tpu_torch.device",
     "particle_simulation_tpu_torch.fma",
     "particle_simulation_tpu_torch.interop",
+    "particle_simulation_tpu_torch.observability",
     "particle_simulation_tpu_torch.rng",
     "particle_simulation_tpu_torch.runtime",
     "particle_simulation_tpu_torch.schedulers",
     "particle_simulation_tpu_torch.state",
+    "particle_simulation_tpu_torch.testing",
+    "particle_simulation_tpu_torch.utils",
+    "particle_simulation_tpu_torch.utils.profiling",
     "particle_simulation_tpu_torch.ops.grid",
     "particle_simulation_tpu_torch.ops.physics",
     "particle_simulation_tpu_torch.ops.population",
@@ -41,6 +48,7 @@ MODULES = [
     "particle_simulation_tpu_torch.probes.microbench_fieldgather",
     "particle_simulation_tpu_torch.probes.microbench_lookup",
     "particle_simulation_tpu_torch.probes.step_times",
+    "particle_simulation_tpu_torch.probes.sweep_sensitivity",
     "particle_simulation_tpu_torch.probes.worklog_phase",
 ]
 
