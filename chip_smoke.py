@@ -55,10 +55,13 @@ Phases, each printing one line or a few:
 7. the three probes whose entry points are the port's remaining kernels,
    each at its script's sizes (probes/experiment_worklog.py,
    experiment_sublane_gather.py, microbench_lookup.py): each kernel against
-   its plain twin, bitwise (row_compact; sublane_gather in both variants;
-   lookup_bench in all three); then, with the launch counts at 0, the
-   probe's timings, which are its path: the kernel, its twin and the
-   PyTorch call where one exists;
+   its plain twin, bitwise (row_compact at both sizes, then at 33 rows and
+   at 777 empty rows, back to back on one cached look-back state;
+   sublane_gather in both variants; lookup_bench in all five, banked the
+   design); then, with the launch counts at 0, the probe's timings, which
+   are its path: the kernel, its twin and the PyTorch call where one
+   exists (row_compact warm and cold, its time against the bound the cold
+   one; lookup_bench by variant, its time banked's);
 8. the entry points as a user calls them, each with the launch counts at
    0 before it and read after it (every kernel it reaches must launch):
    (a) ``cli.main`` in mode ``test`` at the main path's 1M electrons, grid
@@ -1007,6 +1010,7 @@ def main() -> int:
             "plain_ms": timing.plain_ms,
             **bounds(name, timing.bytes, timing.ops),
             "library_ms": timing.library_ms,
+            **(timing.extra or {}),
         })
 
     # ---- 8. the entry points ----

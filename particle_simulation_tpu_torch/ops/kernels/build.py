@@ -90,6 +90,9 @@ SIGNATURES = {
         _I, _I, _I,             # table_elems, t_steps, variant
         _P,                     # stream
     ),
+    "pst_lookup_bench_banked_blocks": (
+        _P,                     # int* blocks per SM
+    ),
 }
 
 

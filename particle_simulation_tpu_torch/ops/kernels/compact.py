@@ -12,10 +12,16 @@ int32 ``x``, ``row_compact(x)`` returns ``(out, ptr)``:
 * rows [ptr, R) of ``out`` are zero (the TPU kernel leaves them
   undefined).
 
-A CUDA tensor launches ``csrc/compact.cu`` (one pass, decoupled look-back
-across blocks; the source note says what bounds it), a CPU tensor takes
+A CUDA tensor launches ``csrc/compact.cu`` (one launch a call: one pass
+with a decoupled look-back across blocks, each block zeroing its share of
+the tail; the source note says what bounds it), a CPU tensor takes
 ``row_compact_plain``, any other device raises.  ``launches`` counts
 kernel launches only.
+
+The kernel's state (a ticket, a count of finished tiles, and one look-back
+word a tile of 128 rows) is a buffer kept per device and stream: zeroed
+once when it is allocated or grown, and left zero by every call, so a call
+fills nothing from the host.
 """
 
 from __future__ import annotations
@@ -23,7 +29,29 @@ from __future__ import annotations
 import torch
 
 LANES = 128
-TILE_ROWS = 32  # rows per block of csrc/compact.cu (kTileRows)
+TILE_ROWS = 128  # rows per tile of csrc/compact.cu (kTileRows)
+
+# (device index, stream handle) -> int64 state words, zero between calls
+_STATE = {}
+
+
+def state_words(rows: int) -> int:
+    """State words a call on ``rows`` rows uses: the ticket, the count of
+    finished tiles, then one a tile."""
+    return 2 + -(-rows // TILE_ROWS)
+
+
+def _lookback_state(device: torch.device, stream: int, words: int):
+    """The cached zero words of (device, stream), grown (and zeroed, the
+    one fill) when a call needs more than it holds."""
+    key = (device.index, stream)
+    buf = _STATE.get(key)
+    if buf is None or buf.numel() < words:
+        held = 0 if buf is None else buf.numel()
+        buf = torch.zeros(max(words, 2 * held), dtype=torch.int64,
+                          device=device)
+        _STATE[key] = buf
+    return buf
 
 
 def row_compact_plain(x: torch.Tensor):
@@ -56,17 +84,15 @@ def row_compact(x: torch.Tensor):
 
     rows = x.shape[0]
     out = torch.empty_like(x)
-    ptr = torch.zeros((), dtype=torch.int32, device=x.device)
-    if rows:
-        tiles = -(-rows // TILE_ROWS)
-        # the look-back words, then the ticket (csrc/lookback.cuh)
-        state = torch.zeros(tiles + 1, dtype=torch.int64, device=x.device)
-        build.load().call(
-            "pst_row_compact", x.data_ptr(), out.data_ptr(), ptr.data_ptr(),
-            state.data_ptr(), rows,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-        row_compact.launches += 1
+    ptr = torch.empty((), dtype=torch.int32, device=x.device)
+    if not rows:
+        ptr.zero_()
+        return out, ptr
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    state = _lookback_state(x.device, stream, state_words(rows))
+    build.load().call("pst_row_compact", x.data_ptr(), out.data_ptr(),
+                      ptr.data_ptr(), state.data_ptr(), rows, stream)
+    row_compact.launches += 1
     return out, ptr
 
 

@@ -47,6 +47,7 @@ MODULES = [
     "particle_simulation_tpu_torch.probes.experiment_worklog",
     "particle_simulation_tpu_torch.probes.microbench_fieldgather",
     "particle_simulation_tpu_torch.probes.microbench_lookup",
+    "particle_simulation_tpu_torch.probes.probe_times",
     "particle_simulation_tpu_torch.probes.step_times",
     "particle_simulation_tpu_torch.probes.sweep_sensitivity",
     "particle_simulation_tpu_torch.probes.worklog_phase",

@@ -49,10 +49,11 @@ def _same_compaction(x):
 @pytest.mark.parametrize("case", ["ragged", "all_empty", "all_full",
                                   "negatives", "many_waves"])
 def test_row_compact_matches_plain(dev, case):
-    """R not a multiple of the block's 32 rows; no positive element (ptr 0);
+    """R not a multiple of a tile's 128 rows; no positive element (ptr 0);
     every lane positive; negatives mixed in (dropped, as zeros are); and
-    40,000 rows, 1,250 blocks, so the look-back crosses waves of the 132
-    SMs.  Rows are sparse enough in the last two that some are empty."""
+    40,000 rows, 313 tiles of one block, so the look-back crosses waves of
+    the 132 SMs.  Rows are sparse enough in the last two that some are
+    empty."""
     g = torch.Generator().manual_seed(7)
     if case == "ragged":
         x = experiment_worklog.make_lanes(1000, seed=1, device=dev)
@@ -84,6 +85,29 @@ def test_row_compact_is_the_same_every_run(dev):
         assert torch.equal(out, first)
     want, want_ptr = compact.row_compact_plain(x.cpu())
     assert int(first_ptr) == int(want_ptr) and torch.equal(first.cpu(), want)
+
+
+def test_row_compact_calls_back_to_back_on_one_cached_state(dev):
+    """16384 rows, then 33, then 777 empty rows, queued with no sync
+    between them on the one cached look-back state: each exact, one launch
+    a call, and the state's words all zero again after them."""
+    big = experiment_worklog.make_lanes(16384, seed=5, device=dev)
+    cases = [big, big[:33].clone(), -big[:777]]
+    before = compact.row_compact.launches
+    got = []
+    for i, x in enumerate(cases):
+        got.append(compact.row_compact(x))
+        assert compact.row_compact.launches == before + i + 1
+    torch.cuda.synchronize()
+    for x, (out, ptr) in zip(cases, got):
+        want_out, want_ptr = compact.row_compact_plain(x.cpu())
+        assert int(ptr) == int(want_ptr)
+        assert torch.equal(out.cpu(), want_out)
+    assert int(got[2][1]) == 0 and not got[2][0].any()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = compact._STATE[(dev.index, stream)]
+    assert state.numel() >= compact.state_words(16384)
+    assert not state.any()
 
 
 def test_row_compact_rejects_a_misaligned_tensor(dev):
@@ -126,9 +150,11 @@ def test_sublane_gather_out_of_contract_indices(dev):
 
 @pytest.mark.parametrize("shape", ["probe", "ragged", "int32_limits"])
 def test_lookup_bench_variants_match_plain(dev, shape):
-    """global, shared and the plain twin bitwise equal; none gives zeros.
-    "ragged": lanes not a multiple of a block; "int32_limits": lanes near
-    both limits, where the sums wrap."""
+    """banked, paired, global, shared and the plain twin bitwise equal;
+    none gives zeros.  "ragged": lanes not a multiple of a block;
+    "int32_limits": lanes near both limits, where the sums wrap (banked's
+    and paired's lanes near INT32_MAX take the formula, not the stepped
+    index)."""
     if shape == "probe":
         inp = microbench_lookup.make_inputs(tiles=microbench_lookup.TILES,
                                             seed=2, device="cpu")
@@ -141,10 +167,16 @@ def test_lookup_bench_variants_match_plain(dev, shape):
         inp = inp._replace(x=x)
     want = lookup_bench.lookup_bench_plain(*inp)
     gpu = [t.to(dev) for t in inp]
-    for variant in ("global", "shared", "none"):
+    for variant in ("banked", "paired", "global", "shared", "none"):
         before = lookup_bench.lookup_bench.launches
         got = lookup_bench.lookup_bench(*gpu, variant)
         torch.cuda.synchronize()
         assert lookup_bench.lookup_bench.launches == before + 1
         ref = torch.zeros_like(want) if variant == "none" else want
         assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def test_lookup_bench_banked_is_resident(dev):
+    """The banked variant's 114,688 B blocks of 1024 threads are resident
+    (two to an SM on an H100: 2 x (114,688 + 1,024) of 233,472 B)."""
+    assert lookup_bench.banked_blocks_per_sm(dev) >= 1

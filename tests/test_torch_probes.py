@@ -23,7 +23,7 @@ from particle_simulation_tpu_torch.ops.kernels import (
     compact, lookup_bench, sublane_gather,
 )
 from particle_simulation_tpu_torch.probes import (
-    experiment_sublane_gather, experiment_worklog, microbench_lookup,
+    common, experiment_sublane_gather, experiment_worklog, microbench_lookup,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -170,6 +170,33 @@ def test_lookup_bench_plain_matches_pallas_kernel(mode):
     assert (want != 0).all() if mode != "e" else (want == 0).all()
 
 
+@pytest.mark.parametrize("lanes", ["random", "int32_max", "int32_min"])
+def test_lookup_bench_incremental_plain_matches_pallas_kernel(lanes):
+    """The banked kernel's index rule (r += 38 modulo 896; the formula for
+    lanes whose x + 38t wraps int32) against the TPU kernel (mode a) and
+    the formula's twin, bitwise; 2 tiles.  Near INT32_MAX every lane
+    wraps within its T steps, near INT32_MIN none does."""
+    tiles = 2
+    rng = np.random.default_rng(6)
+    x = rng.integers(0, 7 * L, (tiles * L, L)).astype(np.int64)
+    if lanes == "int32_max":
+        x = 2**31 - 1 - x
+    elif lanes == "int32_min":
+        x = -2**31 + x
+    x = x.astype(np.int32)
+    split2d = rng.random((79, L), dtype=np.float32)
+    remove2d = rng.random((79, L), dtype=np.float32)
+    want = _lookup_tpu(x, split2d, remove2d, "a", tiles)
+    args = tuple(map(torch.from_numpy, (x, split2d, remove2d)))
+    got = lookup_bench.lookup_bench_incremental_plain(*args)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    np.testing.assert_array_equal(
+        _bits(got.numpy()),
+        _bits(lookup_bench.lookup_bench_plain(*args, "banked").numpy()))
+    wraps = x.astype(np.int64) + lookup_bench.STEP * (lookup_bench.T_STEPS - 1)
+    assert (wraps > 2**31 - 1).all() == (lanes == "int32_max")
+
+
 # ---- the CPU wrappers ----
 
 def test_cpu_wrappers_take_the_plain_twins():
@@ -187,7 +214,7 @@ def test_cpu_wrappers_take_the_plain_twins():
         assert torch.equal(sublane_gather.sublane_gather(xs, idx, variant),
                            sublane_gather.sublane_gather_plain(xs, idx, variant))
     lk = microbench_lookup.make_inputs(tiles=1, device="cpu")
-    for variant in ("global", "shared"):
+    for variant in ("banked", "paired", "global", "shared"):
         assert torch.equal(lookup_bench.lookup_bench(*lk, variant),
                            lookup_bench.lookup_bench_plain(*lk, "global"))
     assert not lookup_bench.lookup_bench(*lk, "none").any()
@@ -209,6 +236,81 @@ def test_plain_twins_wrap_and_floor_as_int32():
             acc = np.float32(np.float32(acc + idx) + np.float32(idx))
         want.append(acc)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want, np.float32))
+
+
+def test_lookup_bench_incremental_plain_on_lanes_that_wrap_mid_run():
+    """Lanes that wrap at every step t of the run, and their neighbours:
+    the stepped index parts from the formula after the wrap (2^32 mod 896
+    = 256), so these lanes must take the formula."""
+    step = lookup_bench.STEP
+    first = 2**31 - 1 - step * np.arange(lookup_bench.T_STEPS + 2)
+    x = np.concatenate([first, first + 1, first - 1])
+    x = np.resize(x, (4, L)).astype(np.int64).astype(np.int32)
+    g = torch.Generator().manual_seed(11)
+    tabs = torch.rand((2, 79, L), generator=g)
+    xt = torch.from_numpy(x)
+    got = lookup_bench.lookup_bench_incremental_plain(xt, *tabs)
+    want = lookup_bench.lookup_bench_plain(xt, *tabs)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+
+
+@pytest.mark.parametrize("variant", ["banked", "paired", "none"])
+def test_cpu_lookup_wrapper_takes_the_plain_twin(variant):
+    """On a CPU tensor every variant, banked too, is the plain twin: no
+    launch, no kernel built."""
+    lk = microbench_lookup.make_inputs(tiles=1, seed=8, device="cpu")
+    before = lookup_bench.lookup_bench.launches
+    got = lookup_bench.lookup_bench(*lk, variant)
+    assert torch.equal(got, lookup_bench.lookup_bench_plain(*lk, variant))
+    assert lookup_bench.lookup_bench.launches == before
+
+
+@pytest.mark.parametrize("variant", ["texture", "Banked", "banked2"])
+def test_lookup_wrapper_rejects_unknown_variants(variant):
+    lk = microbench_lookup.make_inputs(tiles=1, device="cpu")
+    for fn in (lookup_bench.lookup_bench, lookup_bench.lookup_bench_plain,
+               lookup_bench.lookup_bench_incremental_plain):
+        with pytest.raises(ValueError, match="variant"):
+            fn(*lk, variant)
+
+
+@pytest.mark.parametrize("bytes_per_call, sets", [
+    (16 * 2**20, 8),        # row_compact at (16384, 128): 8 MiB in, 8 out
+    (7_864_320, 16),        # the lookup probe's lanes in and out
+    (100 * 2**20, 2),       # exactly twice the L2: one more set
+    (101 * 2**20, 1),       # past twice the L2 alone
+    (1, 2**27),
+])
+def test_rotation_sets_exceed_twice_the_l2(bytes_per_call, sets):
+    """The cold timing's set count: the least power of two whose working
+    set exceeds twice the 50 MiB L2."""
+    got = common.rotation_sets(bytes_per_call)
+    assert got == sets
+    assert got * bytes_per_call > 2 * common.L2_BYTES
+    assert got == 1 or (got // 2) * bytes_per_call <= 2 * common.L2_BYTES
+
+
+def test_rotation_sets_rejects_no_bytes():
+    with pytest.raises(ValueError):
+        common.rotation_sets(0)
+
+
+def test_row_compact_lookback_state_is_cached_and_grown():
+    """One zeroed buffer per (device, stream), kept while calls fit it and
+    grown (at least doubled) when a call needs more words: a call that
+    fits fills nothing."""
+    key = (torch.device("cpu"), 12345)
+    compact._STATE.pop((None, 12345), None)
+    assert compact.state_words(16384) == 130 and compact.state_words(129) == 4
+    a = compact._lookback_state(*key, compact.state_words(16384))
+    assert a.numel() == 130 and not a.any()
+    assert compact._lookback_state(*key, 4) is a
+    b = compact._lookback_state(*key, 200)
+    assert b is not a and b.numel() == 260 and not b.any()
+    assert compact._lookback_state(*key, 260) is b
+    assert compact._lookback_state(torch.device("cpu"), 1, 3) is not b
+    compact._STATE.pop((None, 12345), None)
+    compact._STATE.pop((None, 1), None)
 
 
 @pytest.mark.parametrize("kernel", ["compact", "sublane", "lookup"])
