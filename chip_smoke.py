@@ -10,7 +10,9 @@ Phases, each printing one line or a few:
 2. the card's name and power limit (nvidia-smi);
 3. build the kernels (csrc/worklog.cu, staged.cu, field.cu, compact.cu,
    sublane_gather.cu and lookup_bench.cu, one nvcc process each, in
-   parallel) and print the build time;
+   parallel) and print the build time and each kernel's registers, stack
+   and spills (probes/ptxas.py; the engines by their template arguments,
+   the reference and the general instantiations);
 4. each kernel against its plain PyTorch version on the same inputs, each
    Poisson step: the sorted particle multiset with ids and the counters
    n, added, removed, overflow, pushes_lo, pushes_hi must be equal
@@ -83,6 +85,28 @@ Phases, each printing one line or a few:
        digest of the final multiset with ids).  Per row: the ms per
        Poisson step, pushes/s, the field paths and the peak memory.
    The tracked CSVs must be byte-identical afterwards.
+9. the model menu (boris with and without a magnetic field, isotropic
+   collisions, the periodic box, the thermal start, the argon-like table,
+   the FFT field), through the kernels' general instantiations:
+   (a) each model alone and all together at the const churn of 4a
+       (spawn_depth 2 and 1, 2 steps), and a case that wraps (16^3,
+       mobility_dt 1e-9, init_vth 1e6): each engine against its plain
+       version and the two engines against each other, ids, statuses and
+       counters exact, the float fields within MODEL_ULPS (the count of
+       lanes that differ and their largest difference in ulps printed);
+       then the lanes that wrapped, counted as those an absorbing box
+       loses with no collisions (more than 0);
+   (b) the magnetized-argon slice (SLICE: 1M electrons, capacity 4M,
+       256^3, T=100, the argon-like table written to a file and loaded as
+       the cross-section path) on dynamic and dynamic_old, 1 warm and 3
+       timed steps (CUDA events, mean and median of the phases and the
+       Poisson step), the launches, the device-counted passes and n,
+       added, removed at each step; the engines equal at every step, each
+       equal to its plain version at steps 0-1;
+   (c) the slice with field_model="fft" for 2 steps on dynamic, the
+       card's field against the CPU's within FFT_CARD_RTOL;
+   (d) ``python -m particle_simulation_tpu_torch 30`` with the model knobs
+       for 2 steps: exit 0, its final n equal to (b)'s.
 
 Any failed check raises, so the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}; the line before it lists
@@ -90,7 +114,9 @@ the kernels with their launches on their path, their times, the plain
 version's and the library call's, and the bound: the least time the H100
 could take for the same work, from the bytes each input and output must
 move once (3.35 TB/s) and the operations these inputs need (67 TFLOP/s
-float32), whichever is larger (probes/common.py).
+float32), whichever is larger (probes/common.py).  The two engines' lines
+add the slice of 9b: ``models_ms`` (the phase's mean over steps 1-3),
+``models_launches``, ``models_passes`` and ``models_bound_ms``.
 """
 
 from __future__ import annotations
@@ -126,6 +152,47 @@ TRACKED_CSVS = (TPU_CSV, "out/data/quick_sweep_tpu.csv")
 # runs at T >= 200 part further (0.14-0.67%: PERF.md), where 1% stays
 # below the spread between independent seeds (probes/sweep_sensitivity.py)
 SWEEP_TOLERANCE = ((100, 1e-3), (1000, 1e-2))
+# 9: the model menu.  The magnetized-argon slice: B = 0.01 T on electrons
+# (Omega = qB/m = 1.76e9 rad/s along -z), isotropic ionisation children, a
+# periodic box, a thermal start at 2e6 m/s and the argon-like table at a
+# gas density of 1e23 m^-3 and the mobility step of 1e-12 s
+MAGNETIZED_ARGON = dict(integrator="boris", b_field=(0.0, 0.0, -1.76e9),
+                        collision_model="isotropic", boundary="periodic",
+                        init_vth=2.0e6)
+ARGON = dict(gas_density=1e23, dt=1e-12)
+SLICE = dict(MAIN, capacity=4_000_000, **MAGNETIZED_ARGON)
+# (a): each model alone and all together at the const churn; the field is
+# a strong one, so the rotation moves every velocity's bits
+MODEL_CASES = {
+    "boris": dict(integrator="boris"),
+    "boris_field": dict(integrator="boris", b_field=(3e11, -5e11, 7e11)),
+    "periodic": dict(boundary="periodic"),
+    "isotropic": dict(collision_model="isotropic"),
+    "thermal": dict(init_vth=2.0e6),
+    "all": MAGNETIZED_ARGON,
+}
+# a step of 1e-9 s at 1e6 m/s moves 0.1 cell of a 16^3 box: lanes wrap
+WRAP = dict(CHURN, grid_size=(16, 16, 16), mobility_dt=1e-9, init_vth=1e6,
+            boundary="periodic")
+# the kernels and their plain versions run the same float32 arithmetic
+# (the same libdevice cos and sin in double precision, correctly rounded
+# sqrtf): the bound on a float's difference is 0 ulps
+MODEL_ULPS = 0
+# (c): the FFT field on the card (cuFFT) against the CPU's, relative to
+# the field's largest magnitude: the two FFT libraries round differently
+# (5.3e-7 against XLA:CPU at 32^3, tests/test_torch_poisson_fft.py)
+FFT_CARD_RTOL = 2e-5
+# operations a lane-step of the general path adds to OPS_PER_PUSH under the
+# slice's models (csrc/physics.cuh, an FMA as two): the boris rotation
+# (54: the fused and the rounded v - h per axis, 9; per output axis two
+# v' terms of 4 and the final cross term, add and subtract, 5: 39; the
+# drift, 6) in place of the leapfrog's 18, +36; the periodic wrap (fmodf,
+# the sign fix, the clamp and nextafterf, 7 an axis) in place of the
+# bounds test's 6 compares, +15; and an isotropic child's velocity (the
+# two uniforms, cos_t, sin_t, phi, the speed, cos, sin, three products),
+# 22 a child
+OPS_PER_PUSH_MODELS = OPS_PER_PUSH + 36 + 15
+OPS_PER_ISOTROPIC_CHILD = 22
 
 
 def log(msg: str) -> None:
@@ -414,6 +481,283 @@ def entry_points(dev, repo: str) -> dict:
     return total
 
 
+def models_on_card(dev, repo: str) -> dict:
+    """Phase 9 (the module docstring): the model menu on the card.  Returns
+    the keys the two engines' kernel lines gain."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from particle_simulation_tpu_torch import SimConfig, cross_section
+    from particle_simulation_tpu_torch.ops.kernels.push_mcc import (
+        mobility_phase_dynamic, mobility_phase_dynamic_plain, model_bits,
+        staged_phase,
+    )
+    from particle_simulation_tpu_torch.ops.kernels.worklog import (
+        mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
+    )
+    from particle_simulation_tpu_torch.ops.step import grid_phase, poisson_step
+    from particle_simulation_tpu_torch.probes.common import (
+        bound_ms, bound_terms,
+    )
+    from particle_simulation_tpu_torch.runtime import multiset_with_ids
+    from particle_simulation_tpu_torch.state import setup_particles
+
+    t_phase = time.perf_counter()
+
+    def by_ids(state):
+        m = multiset_with_ids(state)
+        return m[np.lexsort((m[:, 11], m[:, 10], m[:, 9]))]
+
+    def same(tag, a, ai, b, bi):
+        """Two phases' outputs: ids, statuses and counters exact; the
+        float fields to MODEL_ULPS.  Returns (lanes that differ, max
+        ulps)."""
+        keys = ("added", "removed", "overflow", "pushes_lo", "pushes_hi")
+        check(a.n == b.n and {k: ai[k] for k in keys}
+              == {k: bi[k] for k in keys},
+              f"{tag}: n {a.n} vs {b.n}, counters {ai} vs {bi}")
+        check(not ai["overflow"], f"{tag}: overflow")
+        x, y = by_ids(a), by_ids(b)
+        check(np.array_equal(x[:, 9:], y[:, 9:]),
+              f"{tag}: ids or statuses differ")
+        ulps = np.abs(x[:, :9].astype(np.int64) - y[:, :9].astype(np.int64))
+        lanes, most = int((ulps > 0).any(1).sum()), int(ulps.max(initial=0))
+        check(most <= MODEL_ULPS,
+              f"{tag}: {lanes} lanes differ, by up to {most} ulps")
+        return lanes, most
+
+    def timed(fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(stop)
+
+    engines = (("worklog", mobility_phase_worklog,
+                mobility_phase_worklog_plain, worklog_phase),
+               ("staged", mobility_phase_dynamic,
+                mobility_phase_dynamic_plain, staged_phase))
+    const = cross_section.load_table(cross_section.bundled_paths()[1], dev)
+
+    # ---- 9a. each model, each engine against its plain version ----
+    t0 = time.perf_counter()
+    cases = [(name, dict(CHURN, **knobs)) for name, knobs in
+             MODEL_CASES.items()] + [("wrap", WRAP)]
+    for name, kw in cases:
+        for depth in (2, 1):
+            cfg = SimConfig(**kw, spawn_depth=depth)
+            # the thermal start alone changes the seed state, not the path
+            check(model_bits(cfg) != 0 or name == "thermal",
+                  f"9a {name}: the reference model")
+            st = setup_particles(cfg, device=dev)
+            for s in range(2):
+                g = grid_phase(st, cfg)
+                outs = {}
+                line = f"  9a {name} d{depth} step {s}:"
+                for label, kernel, plain, _ in engines:
+                    k = kernel(g, s, const, cfg, cfg.poisson_timestep)
+                    p = plain(g, s, const, cfg, cfg.poisson_timestep)
+                    lanes, most = same(f"9a {name} d{depth} step {s} "
+                                       f"{label}", *k, *p)
+                    outs[label] = k
+                    line += (f" {label} equal to plain ({lanes} lanes "
+                             f"differ, max {most} ulps);")
+                same(f"9a {name} d{depth} step {s} engines",
+                     *outs["worklog"], *outs["staged"])
+                m = outs["worklog"][1]
+                log(f"{line} engines equal; n={outs['worklog'][0].n} "
+                    f"added={m['added']} removed={m['removed']}")
+                st = outs["worklog"][0]
+    # the wrap count: with no collisions, an absorbing box loses the lanes
+    # that cross a face in the phase; the periodic one keeps them, wrapped
+    zero = torch.zeros_like(const)
+    cfg = SimConfig(**WRAP)
+    st = grid_phase(setup_particles(cfg, device=dev), cfg)
+    kept = mobility_phase_worklog(st, 0, zero, cfg, cfg.poisson_timestep)
+    lost = mobility_phase_worklog(st, 0, zero, cfg.replace(
+        boundary="absorb"), cfg.poisson_timestep)
+    wrapped = lost[1]["removed"]
+    check(kept[1]["removed"] == 0 and wrapped > 0,
+          f"9a wrap: {wrapped} lanes crossed a face, "
+          f"{kept[1]['removed']} lost in the periodic box")
+    pos = kept[0].pos[: kept[0].n]
+    check(bool(((pos >= 0) & (pos < cfg.sim_size[0])).all()),
+          "9a wrap: a position outside the periodic box")
+    log(f"9a: every model alone and together, both engines equal to their "
+        f"plain versions and to each other (ids, statuses, counters exact; "
+        f"floats within {MODEL_ULPS} ulps), spawn_depth 2 and 1; wrap case "
+        f"(16^3, dt 1e-9, init_vth 1e6): {wrapped} of {cfg.init_n} lanes "
+        f"wrapped in the phase; {time.perf_counter() - t0:.1f} s")
+
+    tmp = tempfile.mkdtemp(prefix="pst_models_")
+    argon_path = os.path.join(tmp, "argon.txt")
+    cross_section.write_table(argon_path,
+                              cross_section.argon_like_table(**ARGON))
+    argon = cross_section.load_table(argon_path, dev)
+    result = {}
+    try:
+        # ---- 9b. the magnetized-argon slice on both engines ----
+        t0 = time.perf_counter()
+        cfg = SimConfig(**SLICE, cross_section_path=argon_path)
+        old_cfg = cfg.replace(scheduler="dynamic_old")
+        st = setup_particles(cfg, device=dev)
+        for _, _, _, wrapper in engines:
+            wrapper.launches = 0
+            wrapper.passes = 0
+        phase_ms = {"worklog": [], "staged": []}
+        step_ms, work, n_after = [], [], []
+        for s in range(4):
+            n_in = st.n
+            recorded = {}
+
+            def recording(label, fn):
+                def phase(*args):
+                    out, ms = timed(fn, *args)
+                    recorded[label] = ms
+                    return out
+                phase.self_compacting = True
+                return phase
+
+            a, ms = timed(poisson_step, st, s, argon, cfg,
+                          recording("worklog", mobility_phase_worklog))
+            b = poisson_step(st, s, argon, old_cfg,
+                             recording("staged", mobility_phase_dynamic))
+            check(a[1] == b[1], f"9b step {s}: engines' metrics {a[1]} vs "
+                  f"{b[1]}")
+            check(np.array_equal(multiset_with_ids(a[0]),
+                                 multiset_with_ids(b[0])),
+                  f"9b step {s}: the engines' multisets differ")
+            m = a[1]
+            line = (f"  9b step {s}: n={m['n']} added={m['added']} "
+                    f"removed={m['removed']} (growth "
+                    f"{100 * (m['n'] - n_in) / n_in:+.1f}%), engines equal; "
+                    f"worklog phase {recorded['worklog']:.3f} ms (passes "
+                    f"{worklog_phase.last.get('passes')}), staged phase "
+                    f"{recorded['staged']:.3f} ms (passes "
+                    f"{staged_phase.last.get('passes')}), Poisson step "
+                    f"{ms:.3f} ms")
+            if s < 2:
+                for label, _, plain, _ in engines:
+                    c = cfg if label == "worklog" else old_cfg
+                    p = poisson_step(st, s, argon, c, plain)
+                    same(f"9b step {s} {label} vs plain", *a, *p)
+                line += "; both equal to plain"
+            log(line)
+            if s:
+                step_ms.append(ms)
+                for label in phase_ms:
+                    phase_ms[label].append(recorded[label])
+                pushes = m["pushes_lo"] + (m["pushes_hi"] << 30)
+                work.append((RECORD_BYTES * (n_in + m["n"])
+                             + cross_section.N_STEPS * 8,
+                             OPS_PER_PUSH_MODELS * pushes
+                             + OPS_PER_ISOTROPIC_CHILD * m["added"]))
+            n_after.append(m["n"])
+            st = a[0]
+        launches = {label: w.launches for label, _, _, w in engines}
+        passes = {label: w.passes for label, _, _, w in engines}
+        check(all(v == 4 for v in launches.values()),
+              f"9b: launches {launches} in 4 phases of each engine")
+        live = torch.cat([st.pos[: st.n], st.vel[: st.n], st.acc[: st.n]], 1)
+        check(bool(torch.isfinite(live).all()), "9b: non-finite state")
+        check(bool(((st.pos[: st.n] >= 0)
+                    & (st.pos[: st.n] < cfg.sim_size[0])).all()),
+              "9b: a position outside the periodic box")
+        n_bytes, n_ops = (sum(w[i] for w in work) / len(work) for i in (0, 1))
+        by_bytes, by_ops = bound_terms(n_bytes, n_ops)
+        bound, by = bound_ms(n_bytes, n_ops)
+        log(f"bound of a slice phase: {n_bytes:.6g} B -> {by_bytes:.4f} ms, "
+            f"{n_ops:.6g} operations -> {by_ops:.4f} ms; {by} set it")
+
+        def stats(xs):
+            return sum(xs) / len(xs), sorted(xs)[len(xs) // 2]
+
+        for label in phase_ms:
+            mean, median = stats(phase_ms[label])
+            result[label] = {"models_ms": mean, "models_ms_median": median,
+                             "models_launches": launches[label],
+                             "models_passes": passes[label],
+                             "models_bound_ms": bound}
+        mean, median = stats(step_ms)
+        log(f"9b: magnetized argon ({cfg.init_n} electrons, capacity "
+            f"{cfg.capacity}, {cfg.grid_size[0]}^3, T={cfg.poisson_timestep}"
+            f", boris b_field={cfg.b_field} rad/s, isotropic, periodic, "
+            f"init_vth {cfg.init_vth:g}, argon-like table {ARGON}): n by "
+            f"step {n_after}; "
+            f"launches {launches}, device-counted passes {passes}; steps 1-3 "
+            f"worklog phase mean {result['worklog']['models_ms']:.3f} ms "
+            f"(median {result['worklog']['models_ms_median']:.3f}), staged "
+            f"phase mean {result['staged']['models_ms']:.3f} ms (median "
+            f"{result['staged']['models_ms_median']:.3f}), Poisson step "
+            f"(dynamic) mean {mean:.3f} ms (median {median:.3f}); the "
+            f"engines equal every step, each equal to plain at steps 0-1; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del st, a, b
+
+        # ---- 9c. the slice with the FFT field on dynamic ----
+        t0 = time.perf_counter()
+        cfg = SimConfig(**SLICE, cross_section_path=argon_path,
+                        field_model="fft")
+        st = setup_particles(cfg, device=dev)
+        worklog_phase.launches = 0
+        for s in range(2):
+            acc = grid_phase(st, cfg).acc
+            cpu = st._replace(**{f: getattr(st, f).cpu() for f in
+                                 ("pos", "vel", "acc", "status", "id_hi",
+                                  "id_lo")})
+            want = grid_phase(cpu, cfg).acc.double()
+            rel = float((acc.cpu().double() - want).abs().max()
+                        / want.abs().max())
+            check(rel <= FFT_CARD_RTOL,
+                  f"9c step {s}: the card's FFT field is {rel:.3g} of the "
+                  f"largest magnitude off the CPU's")
+            st, m = poisson_step(st, s, argon, cfg)
+            log(f"  9c step {s}: FFT field within {rel:.3g} of the CPU's "
+                f"(bound {FFT_CARD_RTOL:g}); n={m['n']} added={m['added']} "
+                f"removed={m['removed']}")
+        check(worklog_phase.launches == 2,
+              f"9c: {worklog_phase.launches} work-log launches in 2 phases")
+        check(bool(torch.isfinite(st.acc[: st.n]).all()), "9c: non-finite")
+        log(f"9c: the slice with field_model=fft on dynamic, 2 steps; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del st, acc, cpu, want
+
+        # ---- 9d. the CLI with the model knobs ----
+        t0 = time.perf_counter()
+        argv = ["30", "0", "1000000", "2", "256", "4000000", "0", "100",
+                "grid=256", f"cs={argon_path}", "integrator=boris",
+                "bfield=0,0,-1.76e9", "collision_model=isotropic",
+                "boundary=periodic", "init_vth=2e6"]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (repo, env.get("PYTHONPATH")) if p)
+        res = subprocess.run(
+            [sys.executable, "-m", "particle_simulation_tpu_torch", *argv],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        for line in res.stdout.splitlines()[-4:]:
+            log(f"  9d | {line}")
+        check(res.returncode == 0,
+              f"9d: exited {res.returncode}: {res.stderr[-2000:]}")
+        final = [line for line in res.stdout.splitlines()
+                 if line.startswith("Final amount of particles:")]
+        check(final == [f"Final amount of particles: {n_after[1]}"],
+              f"9d: {final} vs the slice's n {n_after[1]} after 2 steps")
+        log(f"9d: python -m particle_simulation_tpu_torch {' '.join(argv)}:"
+            f" exit 0, final n {n_after[1]} equal to 9b's; "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"9: the model menu done in {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -445,6 +789,7 @@ def main() -> int:
     )
     from particle_simulation_tpu_torch.probes import (
         experiment_sublane_gather, experiment_worklog, microbench_lookup,
+        ptxas,
     )
     from particle_simulation_tpu_torch.probes import (
         microbench_fieldgather as probe,
@@ -465,9 +810,8 @@ def main() -> int:
     # ---- 3. build ----
     lib = build.load()
     log(f"build: {lib.build_seconds:.1f} s -> {os.path.relpath(lib.path)}")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas.format_lines(lib.build_log):
+        log(f"  ptxas: {line}")
 
     sine = cross_section.load_table(cross_section.bundled_paths()[0], dev)
     const = cross_section.load_table(cross_section.bundled_paths()[1], dev)
@@ -1016,6 +1360,9 @@ def main() -> int:
     # ---- 8. the entry points ----
     entry = entry_points(dev, os.path.dirname(os.path.abspath(__file__)))
 
+    # ---- 9. the model menu ----
+    models = models_on_card(dev, os.path.dirname(os.path.abspath(__file__)))
+
     log(json.dumps({"kernels": [{
         "name": "worklog_phase",
         "route": "cuda",
@@ -1032,6 +1379,7 @@ def main() -> int:
         "plain_ms_median": plain_median,
         **bounds("worklog_phase", *worklog_work),
         "library_ms": None,
+        **models["worklog"],
     }, {
         "name": "staged_phase",
         "route": "cuda",
@@ -1049,6 +1397,7 @@ def main() -> int:
         "plain_ms": staged_plain_ms,
         **bounds("staged_phase", *staged_work),
         "library_ms": None,
+        **models["staged"],
     }, {
         "name": "field_gather",
         "route": "cuda",

@@ -8,9 +8,11 @@ three groups here:
   rng_rounds, rng_mode, worklog_rows) and the field path (bbox_subgrid:
   the S^3 subgrid edge, 0 for the full grid; ``check_supported`` requires
   0 or a positive multiple of 8): honoured;
-* model selections the port does not run yet (integrator, collision_model,
-  boundary, field_model, precision, init_vth, b_field):
-  ``check_supported`` raises on any value but the reference one;
+* the model menu (integrator, collision_model, boundary, field_model,
+  init_vth, b_field): every value the JAX package runs is honoured, by the
+  plain schedulers and both CUDA engines; ``check_supported`` raises on an
+  unknown value and on ``precision="f64"``, the JAX package's float64
+  oracle mode, which the port does not run yet;
 * tuning knobs of the TPU kernels (lookup_*, kernel_*, worklog_unroll,
   worklog_horizon, worklog_align, worklog_start_buckets,
   worklog_spawn_guard, append_window, grid_mode; and bbox_hist_lanes,
@@ -24,6 +26,7 @@ three groups here:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 from . import constants
@@ -104,29 +107,34 @@ SCHEDULER_MODES = {
     "33": "dynamic_old",
 }
 
-# model knob -> the only value the port runs so far
-_PORTED_MODEL = {
-    "integrator": "leapfrog",
-    "collision_model": "reverse",
-    "boundary": "absorb",
-    "field_model": "neighbour",
-    "precision": "f32",
+# model knob -> the values the port runs (the JAX package's model menu)
+MODEL_VALUES = {
+    "integrator": ("leapfrog", "boris"),
+    "collision_model": ("reverse", "isotropic"),
+    "boundary": ("absorb", "periodic"),
+    "field_model": ("neighbour", "fft"),
 }
 
 
 def check_supported(config: SimConfig) -> None:
-    """Raise ValueError for any model selection the port does not run yet,
-    and for values the engines cannot represent."""
-    for name, value in _PORTED_MODEL.items():
-        if getattr(config, name) != value:
+    """Raise ValueError for any model selection the port does not run, and
+    for values the engines cannot represent."""
+    for name, values in MODEL_VALUES.items():
+        if getattr(config, name) not in values:
             raise ValueError(
-                f"{name}={getattr(config, name)!r} is not ported yet "
-                f"(only {value!r})"
+                f"unknown {name}={getattr(config, name)!r} (one of {values})"
             )
-    if config.init_vth != 0.0:
-        raise ValueError("init_vth != 0 is not ported yet")
-    if any(float(b) != 0.0 for b in config.b_field):
-        raise ValueError("a nonzero b_field is not ported yet")
+    if config.precision != "f32":
+        raise ValueError(
+            f"precision={config.precision!r} is not ported yet (only 'f32')"
+        )
+    if not math.isfinite(config.init_vth):
+        raise ValueError(f"init_vth={config.init_vth!r} must be finite")
+    if (len(config.b_field) != 3
+            or not all(math.isfinite(float(b)) for b in config.b_field)):
+        raise ValueError(
+            f"b_field={config.b_field!r} must be three finite floats"
+        )
     if config.rng_mode not in ("perstep", "block2"):
         raise ValueError(f"unknown rng_mode {config.rng_mode!r}")
     # both engines pack (resume step, spawn stamp) into 15 bits each

@@ -10,6 +10,9 @@ ELECTRON_CHARGE = -1.602176487e-19  # Coulombs
 ELECTRON_MASS = 9.1093837015e-31  # kg
 EPSILON0 = 8.8541878176e-12
 PI = 3.1415926536
+# float32(2 pi): the JAX package's models multiply float32 values by
+# 2 * numpy.pi (Box-Muller, the isotropic direction, the FFT eigenvalues)
+TWO_PI_F32 = 6.2831854820251465
 
 DEFAULT_CELL_SIZE = 1e-2  # metres per grid cell edge
 DEFAULT_GRID_SIZE = (512, 512, 512)

@@ -4,7 +4,9 @@
 The bundled tables are read by file path from the JAX package's data folder
 (``particle_simulation_tpu/data``) without importing that package.  A table
 is a (N_STEPS, 2) float32 tensor of (split, remove) chances in percent; it is
-the only "weight" of this system.
+the only "weight" of this system.  ``physical_table`` and
+``argon_like_table`` build one from cross sections (numpy, bitwise the JAX
+package's tables) and ``write_table`` stores it in the reference's format.
 """
 
 from __future__ import annotations
@@ -42,6 +44,51 @@ def generate_table(n_steps: int = N_STEPS) -> np.ndarray:
     i = np.arange(n_steps, dtype=np.float64)
     val = (np.sin(np.power(i, 2.6) / 50_000_000.0) + 1.01) * np.power(i, 0.1)
     return np.stack([val, val], axis=1).astype(np.float32)
+
+
+def write_table(path: str, table: np.ndarray) -> None:
+    """Write (split, remove) pairs in the reference's text format, as the
+    JAX package writes them (``float`` repr, one pair a line)."""
+    with open(path, "w") as f:
+        for split, remove in table:
+            f.write(f"{float(split)} {float(remove)}\n")
+
+
+def physical_table(sigma_split, sigma_remove, gas_density: float,
+                   dt: float, n_steps: int = N_STEPS) -> np.ndarray:
+    """A collision table from physical cross sections (m^2) as functions of
+    the energy variable E = |v|^2: the per-step chance
+    ``1 - exp(-n_gas * sigma(E) * |v| * dt)`` in percent at each bucket's
+    centre energy, computed in float64 and stored as float32, operation
+    for operation the JAX package's."""
+    i = np.arange(n_steps, dtype=np.float64) + 0.5
+    log10_e = i * (22.0 / n_steps) - 6.0
+    energy = np.power(10.0, log10_e)
+    speed = np.sqrt(energy)
+    p_split = 1.0 - np.exp(-gas_density * sigma_split(energy) * speed * dt)
+    p_remove = 1.0 - np.exp(-gas_density * sigma_remove(energy) * speed * dt)
+    table = np.stack([p_split * 100.0, p_remove * 100.0], axis=1)
+    return np.clip(table, 0.0, 100.0).astype(np.float32)
+
+
+def argon_like_table(gas_density: float = 1e20, dt: float = 1e-9,
+                     n_steps: int = N_STEPS) -> np.ndarray:
+    """The JAX package's argon-like table: Lotz-form ionisation above the
+    threshold |v|^2 = 5.54e12 (15.76 eV for an electron), peaking near 4x
+    the threshold and falling as 1/E, plus a low-energy absorption tail.
+    Synthetic constants with argon's shape; ``gas_density`` (m^-3) and
+    ``dt`` (the mobility step, s) set the per-step chances."""
+    e_ion = 5.54e12
+
+    def sigma_ion(e):
+        x = np.maximum(e / e_ion, 1.0)
+        return np.where(e > e_ion, 2.5e-20 * np.log(x) / x, 0.0)
+
+    def sigma_abs(e):
+        return 1.0e-21 / (1.0 + e / 1e11)
+
+    return physical_table(sigma_ion, sigma_abs, gas_density, dt,
+                          n_steps=n_steps)
 
 
 def load_table(path: str = "", device=None) -> torch.Tensor:

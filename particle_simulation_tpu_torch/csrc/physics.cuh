@@ -1,8 +1,15 @@
-// One particle's mobility steps start..T: leapfrog push, bounds kill,
-// draws, table lookup, split or absorb, and the suspension of a lane whose
-// child slots are full.  The float32 expressions are those of the port's
+// One particle's mobility steps start..T: push, boundary, draws, table
+// lookup, split or absorb, and the suspension of a lane whose child slots
+// are full.  The float32 expressions are those of the port's
 // ops/physics.py (and of XLA's contraction of the JAX package's
 // ops/physics.py), operation for operation.
+//
+// Two instantiations of advance_lane: the reference one (GENERAL = false:
+// leapfrog, absorbing boundary, reverse collisions, the main path's code)
+// and the general one, which reads the model selections of the JAX
+// package's ops/physics.py from PhysConsts::model at run time (boris with
+// or without a field, periodic wrap, isotropic children).  The model is
+// the same for every lane of a launch, so its branches do not diverge.
 //
 // The status encodings come from ops/kernels/push_mcc.py through macros
 // (build.py), so Python and CUDA share one definition.
@@ -22,6 +29,13 @@ constexpr int kStatusEmpty = 0;  // constants.py STATUS_*
 constexpr int kStatusAlive = -1;
 constexpr int kStatusDead = -2;
 
+// PhysConsts::model bits (ops/kernels/push_mcc.py MODEL_BITS); 0 is the
+// reference model
+constexpr int kBoris = 1;       // integrator="boris"
+constexpr int kMagnetized = 2;  // boris with a nonzero b_field
+constexpr int kIsotropic = 4;   // collision_model="isotropic"
+constexpr int kPeriodic = 8;    // boundary="periodic"
+
 struct PhysConsts {
   float dt;            // float32(mobility_dt)
   float half_dt;       // float32(dt) / 2
@@ -31,6 +45,9 @@ struct PhysConsts {
   uint32_t seed;
   uint32_t poisson_step;
   int t_steps;
+  int model;           // kBoris | kMagnetized | kIsotropic | kPeriodic
+  float rot_t[3];      // boris: t = Omega dt / 2 (ops/physics.py rotation)
+  float rot_s[3];      // boris: s = 2 t / (1 + |t|^2)
 };
 
 PST_HD bool is_suspended(int s) { return s <= PST_SUS_BASE; }
@@ -77,13 +94,75 @@ struct Child {
   uint32_t id_hi, id_lo;
 };
 
+// x*y - z*w as XLA contracts it: fma(x, y, -(z*w))
+PST_HD float cross_term(float x, float y, float z, float w) {
+  return fma_rn(x, y, -(z * w));
+}
+
+// The boris kick with a field, per output axis as XLA fuses it (fma.py):
+// v - h is fused on the two other axes (fx, fy, fz) and twice-rounded on
+// the output's own (px_, py_, pz_, with h = kx, ky, kz rounded).
+PST_HD void boris_rotate(const Lane& L, float kx, float ky, float kz,
+                         const PhysConsts& k, float& wx, float& wy,
+                         float& wz) {
+  const float* t = k.rot_t;
+  const float* s = k.rot_s;
+  const float fx = fma_rn(-L.ax, k.half_dt, L.vx);
+  const float fy = fma_rn(-L.ay, k.half_dt, L.vy);
+  const float fz = fma_rn(-L.az, k.half_dt, L.vz);
+  const float ox = L.vx - kx;
+  const float oy = L.vy - ky;
+  const float oz = L.vz - kz;
+  {  // x: vm = (ox, fy, fz)
+    const float v1y = fy + cross_term(fz, t[0], ox, t[2]);
+    const float v1z = fz + cross_term(ox, t[1], fy, t[0]);
+    wx = (ox + cross_term(v1y, s[2], v1z, s[1])) - kx;
+  }
+  {  // y: vm = (fx, oy, fz)
+    const float v1z = fz + cross_term(fx, t[1], oy, t[0]);
+    const float v1x = fx + cross_term(oy, t[2], fz, t[1]);
+    wy = (oy + cross_term(v1z, s[0], v1x, s[2])) - ky;
+  }
+  {  // z: vm = (fx, fy, oz)
+    const float v1x = fx + cross_term(fy, t[2], oz, t[1]);
+    const float v1y = fy + cross_term(oz, t[0], fx, t[2]);
+    wz = (oz + cross_term(v1x, s[1], v1y, s[0])) - kz;
+  }
+}
+
+// jnp.mod as XLA computes it (the exact fmodf, plus s where the remainder
+// is nonzero and its sign differs from s's), clipped to nextafter(s, 0)
+PST_HD float wrap_periodic(float x, float s) {
+  float r = fmodf(x, s);
+  if (r != 0.0f && ((r < 0.0f) != (s < 0.0f))) r = r + s;
+  return fminf(fmaxf(r, 0.0f), nextafterf(s, 0.0f));
+}
+
+// The isotropic child's velocity: speed |v| in the direction (cos_t,
+// phi) from the child's id words; sqrt correctly rounded (sqrtf), cos and
+// sin in double precision, rounded once (fma.py f32_of_f64)
+PST_HD void isotropic_velocity(float wx, float wy, float wz,
+                               uint32_t child_hi, uint32_t child_lo,
+                               float& cx, float& cy, float& cz) {
+  const float cos_t = 2.0f * uniform_from_bits(child_hi, 1.0f, 0.0f) - 1.0f;
+  const float sin_t = sqrtf(fmaxf(fma_rn(-cos_t, cos_t, 1.0f), 0.0f));
+  const float phi = 6.28318548202514648f * uniform_from_bits(child_lo, 1.0f,
+                                                              0.0f);
+  const float speed = sqrtf(fma_rn(wz, wz, fma_rn(wx, wx, wy * wy)));
+  const float across = speed * sin_t;
+  cx = across * static_cast<float>(cos(static_cast<double>(phi)));
+  cy = across * static_cast<float>(sin(static_cast<double>(phi)));
+  cz = speed * cos_t;
+}
+
 // Runs lane L (an unfinished record) through steps start..t_steps and
 // returns the number of steps it moved.  ``table`` is the table in device
 // memory (const float2*) or staged in shared memory (SharedTable).  On
 // return L.status is ALIVE or a child stamp (finished), DEAD, or the
 // suspended packing; children[0..n_children) hold the children it spawned
-// (at most D: a lane with D children suspends at its next step).
-template <int D, int ROUNDS, bool BLOCK2, typename Table>
+// (at most D: a lane with D children suspends at its next step).  GENERAL
+// selects the instantiation that reads k.model (the header note).
+template <int D, int ROUNDS, bool BLOCK2, bool GENERAL, typename Table>
 PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
                         Table table,
                         const PhysConsts& k) {
@@ -111,6 +190,71 @@ PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
       have_block = true;
     }
     const Draw dr = draw_from_block(b0, b1, BLOCK2 && (t & 1));
+    if constexpr (GENERAL) {
+      float nx, ny, nz, wx, wy, wz;
+      if (k.model & kBoris) {
+        if (k.model & kMagnetized) {
+          boris_rotate(L, kx, ky, kz, k, wx, wy, wz);
+        } else {
+          wx = fma_rn(-L.ax, k.dt, L.vx);
+          wy = fma_rn(-L.ay, k.dt, L.vy);
+          wz = fma_rn(-L.az, k.dt, L.vz);
+        }
+        // the drift with the new velocity
+        nx = fma_rn(wx, k.dt, L.px);
+        ny = fma_rn(wy, k.dt, L.py);
+        nz = fma_rn(wz, k.dt, L.pz);
+      } else {
+        nx = fma_rn(fma_rn(-L.ax, k.half_dt, L.vx), k.dt, L.px);
+        ny = fma_rn(fma_rn(-L.ay, k.half_dt, L.vy), k.dt, L.py);
+        nz = fma_rn(fma_rn(-L.az, k.half_dt, L.vz), k.dt, L.pz);
+        wx = (L.vx - kx) - kx;
+        wy = (L.vy - ky) - ky;
+        wz = (L.vz - kz) - kz;
+      }
+      if (k.model & kPeriodic) {
+        nx = wrap_periodic(nx, k.size_x);
+        ny = wrap_periodic(ny, k.size_y);
+        nz = wrap_periodic(nz, k.size_z);
+      }
+      L.px = nx;
+      L.py = ny;
+      L.pz = nz;
+      L.vx = wx;
+      L.vy = wy;
+      L.vz = wz;
+      if (!(k.model & kPeriodic) &&
+          (nx < 0.0f || nx >= k.size_x || ny < 0.0f || ny >= k.size_y ||
+           nz < 0.0f || nz >= k.size_z)) {
+        stamp = kStatusDead;
+        break;
+      }
+      const float e = fma_rn(wz, wz, fma_rn(wx, wx, wy * wy));
+      const float2 sr = table_lookup(table, e, k.log10_e, k.bucket_scale);
+      if (dr.u < sr.x) {
+        float cx = wx, cy = wy, cz = wz;
+        if (k.model & kIsotropic) {
+          isotropic_velocity(wx, wy, wz, dr.child_hi, dr.child_lo, cx, cy,
+                             cz);
+        } else {
+          L.vx = -wx;
+          L.vy = -wy;
+          L.vz = -wz;
+        }
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          if (d == depth) {
+            children[d] = Child{nx, ny, nz, cx, cy, cz, t, dr.child_hi,
+                                dr.child_lo};
+          }
+        }
+        ++depth;
+      } else if (dr.u < sr.x + sr.y) {
+        stamp = kStatusDead;
+        break;
+      }
+      continue;
+    }
     // kick-drift-kick: the drift velocity is fused into the position
     // update, the stored velocity is the twice-rounded (v - k) - k
     const float nx = fma_rn(fma_rn(-L.ax, k.half_dt, L.vx), k.dt, L.px);

@@ -71,6 +71,16 @@
 // host reads back once a phase: the kRes* result words.  Ranks come from
 // counts alone, so the output is the same on every run.
 //
+// The model menu (ops/physics.py: boris with or without a field, the
+// periodic box, isotropic children; physics.cuh advance_lane).  Each
+// kernel is instantiated twice per (depth, rounds, block2): the reference
+// instantiation, the main path's code as it was, and the general one,
+// which reads PhysConsts::model at run time (the same for every lane, so
+// its branches do not diverge).  The launch takes the reference
+// instantiation for model 0 and the general one otherwise; the general
+// path costs the registers and the operations of its models, and its time
+// is PERF.md's (section 6).
+//
 // Measured alternatives (probes/step_times.py on trees that differ only in
 // the kernel, alternated in one call, on one NVIDIA H100 80GB HBM3 at
 // 700 W; PERF.md section 6), the mobility phase's mean over main-path
@@ -268,7 +278,7 @@ struct PassIn {
 // lane's children go to this pass's staging regions, its slot to the next
 // list if it suspends, at ranks from D + 1 look-backs in ``words``.  Adds
 // the thread's pushes and newly DEAD lanes to its sums.
-template <int D, int ROUNDS, bool BLOCK2>
+template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __device__ __forceinline__ void sweep_tile(
     const Args& a, int tile, const PassIn<D>& in, int32_t* stack,
     int32_t* next_list, int32_t* stage, unsigned long long* words,
@@ -300,8 +310,8 @@ __device__ __forceinline__ void sweep_tile(
       p[10 * cap] = static_cast<int32_t>(L.id_hi);
       p[11 * cap] = static_cast<int32_t>(L.id_lo);
     }
-    pushes += advance_lane<D, ROUNDS, BLOCK2>(L, kids, n_kids,
-                                              SharedTable{table_rows}, a.k);
+    pushes += advance_lane<D, ROUNDS, BLOCK2, GENERAL>(
+        L, kids, n_kids, SharedTable{table_rows}, a.k);
     int32_t* p = stack + slot;
     p[0] = __float_as_int(L.px);
     p[cap] = __float_as_int(L.py);
@@ -392,7 +402,7 @@ __device__ __forceinline__ long long total_of(unsigned long long* words,
 // rest) at spawn depth 1 and 2, as worklog_phase runs; unbounded, the
 // kernel takes 168 registers and one block an SM, which measured slower
 // (the source note).  Depths 3 and 4 run one block an SM.
-template <int D, int ROUNDS, bool BLOCK2>
+template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float2 table_rows[];
@@ -508,8 +518,9 @@ __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
     {
       int died = 0;
       for (int tile = ticket(r); tile < n_tiles; tile = ticket(r)) {
-        sweep_tile<D, ROUNDS, BLOCK2>(a, tile, in, stack, next_list, stage,
-                                      r + kHeader, pushes, died);
+        sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, in, stack, next_list,
+                                               stage, r + kHeader, pushes,
+                                               died);
       }
       add_block_count(died, r + kCount);
     }
@@ -634,21 +645,29 @@ __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
   }
 }
 
-template <int D, int ROUNDS, bool BLOCK2>
+template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 cudaError_t launch(Args& a, cudaStream_t stream) {
   static CoopCache cache;
-  const auto kernel = staged_phase<D, ROUNDS, BLOCK2>;
+  const auto kernel = staged_phase<D, ROUNDS, BLOCK2, GENERAL>;
   void* args[] = {&a};
   return launch_cooperative((const void*)kernel, kTile, kTableBytes,
                             a.tiles_max, args, cache, stream);
 }
 
-template <int D>
+template <int D, bool GENERAL>
 cudaError_t dispatch(int rounds, int block2, Args& a, cudaStream_t stream) {
-  if (rounds == 13 && block2) return launch<D, 13, true>(a, stream);
-  if (rounds == 13) return launch<D, 13, false>(a, stream);
-  if (rounds == 20 && block2) return launch<D, 20, true>(a, stream);
-  if (rounds == 20) return launch<D, 20, false>(a, stream);
+  if (rounds == 13 && block2) {
+    return launch<D, 13, true, GENERAL>(a, stream);
+  }
+  if (rounds == 13) {
+    return launch<D, 13, false, GENERAL>(a, stream);
+  }
+  if (rounds == 20 && block2) {
+    return launch<D, 20, true, GENERAL>(a, stream);
+  }
+  if (rounds == 20) {
+    return launch<D, 20, false, GENERAL>(a, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -663,7 +682,8 @@ cudaError_t dispatch(int rounds, int block2, Args& a, cudaStream_t stream) {
 // words ``lookback`` ((PST_STAGED_REGIONS, PST_STAGED_HEADER + (depth + 1)
 // * tiles_max) int64, tiles_max >= ceil(C / PST_STAGED_TILE)), all of any
 // content.  ``result`` (PST_STAGED_RESULT_WORDS int64) gets the kRes*
-// words.  Returns a cudaError_t (0 on success), including a refused
+// words.  ``model`` is PhysConsts::model (0: the reference
+// instantiation), t0..s2 the boris rotation's constants.  Returns a cudaError_t (0 on success), including a refused
 // cooperative launch.
 extern "C" int pst_staged_phase(
     const void* pos, const void* vel, const void* acc, const void* status,
@@ -674,7 +694,8 @@ extern "C" int pst_staged_phase(
     const void* table, float dt, float half_dt, float size_x, float size_y,
     float size_z, float log10_e, float bucket_scale, unsigned int seed,
     unsigned int poisson_step, int t_steps, int depth, int rounds,
-    int block2, void* stream) {
+    int block2, int model, float t0, float t1, float t2, float s0,
+    float s1, float s2, void* stream) {
   using namespace pst::staged;
   // list entries and look-back counts are 32-bit: at most C of each a pass
   if (n0 <= 0 || capacity <= 0 || capacity > INT32_MAX || depth < 1 ||
@@ -713,13 +734,34 @@ extern "C" int pst_staged_phase(
   a.k.seed = seed;
   a.k.poisson_step = poisson_step;
   a.k.t_steps = t_steps;
+  a.k.model = model;
+  a.k.rot_t[0] = t0;
+  a.k.rot_t[1] = t1;
+  a.k.rot_t[2] = t2;
+  a.k.rot_s[0] = s0;
+  a.k.rot_s[1] = s1;
+  a.k.rot_s[2] = s2;
+  // the reference model runs the instantiations of the main path
+  const bool general = model != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (depth) {
-    case 1: err = dispatch<1>(rounds, block2, a, st); break;
-    case 2: err = dispatch<2>(rounds, block2, a, st); break;
-    case 3: err = dispatch<3>(rounds, block2, a, st); break;
-    case 4: err = dispatch<4>(rounds, block2, a, st); break;
+    case 1:
+      err = general ? dispatch<1, true>(rounds, block2, a, st)
+                    : dispatch<1, false>(rounds, block2, a, st);
+      break;
+    case 2:
+      err = general ? dispatch<2, true>(rounds, block2, a, st)
+                    : dispatch<2, false>(rounds, block2, a, st);
+      break;
+    case 3:
+      err = general ? dispatch<3, true>(rounds, block2, a, st)
+                    : dispatch<3, false>(rounds, block2, a, st);
+      break;
+    case 4:
+      err = general ? dispatch<4, true>(rounds, block2, a, st)
+                    : dispatch<4, false>(rounds, block2, a, st);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -56,6 +56,16 @@
 //     gives it 80 registers a thread, depth 4 118) and 80 KB a block, two
 //     blocks of kTile = 384 threads fit an SM (768 threads).
 //
+// The model menu (ops/physics.py: boris with or without a field, the
+// periodic box, isotropic children; physics.cuh advance_lane).  Each
+// kernel is instantiated twice per (depth, rounds, block2): the reference
+// instantiation, the main path's code as it was, and the general one,
+// which reads PhysConsts::model at run time (the same for every lane, so
+// its branches do not diverge).  The launch takes the reference
+// instantiation for model 0 and the general one otherwise; the general
+// path costs the registers and the operations of its models, and its time
+// is PERF.md's (section 6).
+//
 // Measured alternatives (chip_smoke.py phase 5 on trees that differ only
 // in the kernel, two runs of each alternated in one call, on one NVIDIA H100
 // 80GB HBM3 at 700 W; PERF.md section 6): the device's busy time in the
@@ -199,7 +209,7 @@ __device__ __forceinline__ void store_done(const PhaseArgs& a, long long j,
 // One tile of one pass: sweep, rank, look back, emit.  ``src`` is null in
 // pass 1 (the source is the caller's state).  Adds the thread's pushes and
 // children to its running sums.
-template <int D, int ROUNDS, bool BLOCK2>
+template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __device__ __forceinline__ void sweep_tile(
     const PhaseArgs& a, int tile, int n_src, const int32_t* src,
     int32_t* dst, unsigned long long* done_words,
@@ -216,7 +226,7 @@ __device__ __forceinline__ void sweep_tile(
   if (i < n_src) {
     L = src ? load_work(src, a.work_cap, i) : load_state(a, i);
     if (is_unfinished(L.status)) {
-      pushes += advance_lane<D, ROUNDS, BLOCK2>(
+      pushes += advance_lane<D, ROUNDS, BLOCK2, GENERAL>(
           L, kids, n_kids, SharedTable{table_rows}, a.k);
       children += n_kids;
       done = L.status == kStatusAlive || L.status > 0;
@@ -270,7 +280,7 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;
 }
 
-template <int D, int ROUNDS, bool BLOCK2>
+template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float2 table_rows[];
@@ -315,8 +325,9 @@ __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
     while (true) {
       const int tile = lookback_ticket(reinterpret_cast<unsigned int*>(region));
       if (tile >= n_tiles) break;
-      sweep_tile<D, ROUNDS, BLOCK2>(a, tile, n_src, src, dst, done_words,
-                                    work_words, n_done, pushes, children);
+      sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, n_src, src, dst,
+                                             done_words, work_words, n_done,
+                                             pushes, children);
     }
     grid.sync();
     // the last tile's inclusive prefixes are the pass's totals
@@ -356,22 +367,30 @@ __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
   }
 }
 
-template <int D, int ROUNDS, bool BLOCK2>
+template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 cudaError_t launch_phase(PhaseArgs& a, cudaStream_t stream) {
   static CoopCache cache;
-  const auto kernel = worklog_phase<D, ROUNDS, BLOCK2>;
+  const auto kernel = worklog_phase<D, ROUNDS, BLOCK2, GENERAL>;
   void* args[] = {&a};
   return launch_cooperative((const void*)kernel, kTile, kTableBytes,
                             a.tiles_max, args, cache, stream);
 }
 
-template <int D>
+template <int D, bool GENERAL>
 cudaError_t dispatch_phase(int rounds, int block2, PhaseArgs& a,
                            cudaStream_t stream) {
-  if (rounds == 13 && block2) return launch_phase<D, 13, true>(a, stream);
-  if (rounds == 13) return launch_phase<D, 13, false>(a, stream);
-  if (rounds == 20 && block2) return launch_phase<D, 20, true>(a, stream);
-  if (rounds == 20) return launch_phase<D, 20, false>(a, stream);
+  if (rounds == 13 && block2) {
+    return launch_phase<D, 13, true, GENERAL>(a, stream);
+  }
+  if (rounds == 13) {
+    return launch_phase<D, 13, false, GENERAL>(a, stream);
+  }
+  if (rounds == 20 && block2) {
+    return launch_phase<D, 20, true, GENERAL>(a, stream);
+  }
+  if (rounds == 20) {
+    return launch_phase<D, 20, false, GENERAL>(a, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -382,7 +401,9 @@ cudaError_t dispatch_phase(int rounds, int block2, PhaseArgs& a,
 // output state of the same capacity, through the work logs ``logs``
 // ((2, 12, work_cap) int32), with the look-back words ``lookback``
 // ((kRegions, 1 + 2 * tiles_max) int64, any content).  ``result``
-// (PST_WORKLOG_RESULT_WORDS int64) gets the kRes* words.
+// (PST_WORKLOG_RESULT_WORDS int64) gets the kRes* words.  ``model`` is
+// PhysConsts::model (0: the reference instantiation), t0..s2 the boris
+// rotation's constants.
 // Returns a cudaError_t (0 on success), including a refused cooperative
 // launch.
 extern "C" int pst_worklog_phase(
@@ -394,7 +415,8 @@ extern "C" int pst_worklog_phase(
     float dt, float half_dt, float size_x, float size_y, float size_z,
     float log10_e, float bucket_scale, unsigned int seed,
     unsigned int poisson_step, int t_steps, int depth, int rounds,
-    int block2, void* stream) {
+    int block2, int model, float t0, float t1, float t2, float s0,
+    float s1, float s2, void* stream) {
   using namespace pst;
   // a look-back word holds a pass's count in 32 bits: at most 1 + depth
   // work records for each of at most max(n0, work_cap) source records
@@ -435,13 +457,34 @@ extern "C" int pst_worklog_phase(
   a.k.seed = seed;
   a.k.poisson_step = poisson_step;
   a.k.t_steps = t_steps;
+  a.k.model = model;
+  a.k.rot_t[0] = t0;
+  a.k.rot_t[1] = t1;
+  a.k.rot_t[2] = t2;
+  a.k.rot_s[0] = s0;
+  a.k.rot_s[1] = s1;
+  a.k.rot_s[2] = s2;
+  // the reference model runs the instantiations of the main path
+  const bool general = model != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (depth) {
-    case 1: err = dispatch_phase<1>(rounds, block2, a, st); break;
-    case 2: err = dispatch_phase<2>(rounds, block2, a, st); break;
-    case 3: err = dispatch_phase<3>(rounds, block2, a, st); break;
-    case 4: err = dispatch_phase<4>(rounds, block2, a, st); break;
+    case 1:
+      err = general ? dispatch_phase<1, true>(rounds, block2, a, st)
+                    : dispatch_phase<1, false>(rounds, block2, a, st);
+      break;
+    case 2:
+      err = general ? dispatch_phase<2, true>(rounds, block2, a, st)
+                    : dispatch_phase<2, false>(rounds, block2, a, st);
+      break;
+    case 3:
+      err = general ? dispatch_phase<3, true>(rounds, block2, a, st)
+                    : dispatch_phase<3, false>(rounds, block2, a, st);
+      break;
+    case 4:
+      err = general ? dispatch_phase<4, true>(rounds, block2, a, st)
+                    : dispatch_phase<4, false>(rounds, block2, a, st);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -35,12 +35,13 @@ from .kernels.field import packed_field_gather
 
 class FieldCounts:
     """What the field phases took since the last ``reset``: ``subgrid``,
-    ``window_fallback`` (the box did not fit the window) and ``full``
-    (``bbox_subgrid=0``) per field phase, ``rows_fallback`` per 10-bit
+    ``window_fallback`` (the box did not fit the window), ``full``
+    (``bbox_subgrid=0``) and ``fft`` (``field_model="fft"``) per field
+    phase, ``rows_fallback`` per 10-bit
     misfit, ``readbacks`` per value read back to the host, ``last`` the
     path of the latest field phase."""
 
-    PATHS = ("subgrid", "window_fallback", "full")
+    PATHS = ("subgrid", "window_fallback", "full", "fft")
 
     def __init__(self):
         self.reset()

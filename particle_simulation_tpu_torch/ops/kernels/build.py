@@ -52,6 +52,8 @@ SIGNATURES = {
         _F, _F,                 # log10_e, bucket_scale
         _U, _U, _I,             # seed, poisson_step, t_steps
         _I, _I, _I,             # depth, rounds, block2
+        _I, _F, _F, _F,         # model, t (boris rotation)
+        _F, _F, _F,             # s (boris rotation)
         _P,                     # stream
     ),
     "pst_staged_phase": (
@@ -66,6 +68,8 @@ SIGNATURES = {
         _F, _F,                 # log10_e, bucket_scale
         _U, _U, _I,             # seed, poisson_step, t_steps
         _I, _I, _I,             # depth, rounds, block2
+        _I, _F, _F, _F,         # model, t (boris rotation)
+        _F, _F, _F,             # s (boris rotation)
         _P,                     # stream
     ),
     "pst_banded_gather": (

@@ -38,6 +38,13 @@ TPU lookup ``make_chunked_lookup`` is ported as its outcome
 it returns what a direct ``table[energy_to_index(E)]`` read returns, and
 its chunk sweeps exist because the TPU has no per-lane gather.
 
+The model menu (integrator, b_field, collision_model, boundary) reaches
+both kernels through ``phys_args``: the ``MODEL_BITS`` of the selection and
+the boris rotation's constants.  Model 0, the reference, launches the
+instantiations of the main path; any other the general ones
+(csrc/physics.cuh).  The plain versions call ``update_particles`` with the
+same selection (``physics.model_args``).
+
 Records travel as (12, C) int32 stacks in ``FIELD_NAMES`` order, float
 fields as bit patterns.  The JAX (rows, 128) field planes, their window
 padding and the staging-budget depth clamp are not carried over: the
@@ -58,7 +65,9 @@ from ...cross_section import BUCKET_SCALE, LOG10_E, N_STEPS
 from ...schedulers import pushes_info
 from ...state import SimState
 from .. import population
-from ..physics import Particles, f32, half_dt, update_particles
+from ..physics import (
+    Particles, f32, half_dt, model_args, rotation, update_particles,
+)
 from ..population import is_live
 
 FIELD_NAMES = (
@@ -166,17 +175,38 @@ def check_kernel_args(config: SimConfig, table: torch.Tensor, device):
         )
 
 
+# the bits of PhysConsts::model (csrc/physics.cuh kBoris ... kPeriodic); 0,
+# the reference model, runs the kernels' reference instantiations, any
+# other value their general ones
+MODEL_BITS = {"boris": 1, "magnetized": 2, "isotropic": 4, "periodic": 8}
+
+
+def model_bits(config: SimConfig) -> int:
+    """The model selections of ``config`` as PhysConsts::model bits."""
+    boris = config.integrator == "boris"
+    return (MODEL_BITS["boris"] * boris
+            | MODEL_BITS["magnetized"] * (
+                boris and rotation(config.b_field, config.mobility_dt)
+                is not None)
+            | MODEL_BITS["isotropic"] * (config.collision_model == "isotropic")
+            | MODEL_BITS["periodic"] * (config.boundary == "periodic"))
+
+
 def phys_args(config: SimConfig, poisson_step: int, t_steps: int) -> tuple:
     """The kernels' physics arguments: dt, half_dt, sim_size, log10_e,
     bucket_scale, seed, poisson_step, t_steps, spawn_depth, rounds,
-    block2."""
+    block2, the model bits and the boris rotation's t and s (zeros without
+    a field)."""
     sx, sy, sz = (f32(s) for s in config.sim_size)
+    bits = model_bits(config)
+    rot = (rotation(config.b_field, config.mobility_dt)
+           if bits & MODEL_BITS["magnetized"] else ((0.0,) * 3,) * 2)
     return (
         f32(config.mobility_dt), half_dt(config.mobility_dt), sx, sy, sz,
         float(LOG10_E), float(BUCKET_SCALE),
         config.seed & rng.MASK, poisson_step & rng.MASK, t_steps,
         config.spawn_depth, config.rng_rounds,
-        int(config.rng_mode == "block2"),
+        int(config.rng_mode == "block2"), bits, *rot[0], *rot[1],
     )
 
 
@@ -302,7 +332,7 @@ def staged_pass_plain(stack: torch.Tensor, n: int, table, config: SimConfig,
                 p, active=active, t=t, poisson_step=poisson_step,
                 dt=config.mobility_dt, sim_size=config.sim_size,
                 seed=config.seed, table=table, rng_rounds=config.rng_rounds,
-                rng_mode=config.rng_mode,
+                rng_mode=config.rng_mode, **model_args(config),
             )
             child = _stage_rec(res.child)
             for d in range(depth_max):

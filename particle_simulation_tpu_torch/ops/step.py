@@ -17,6 +17,7 @@ from ..config import SimConfig, check_supported
 from ..state import SimState
 from . import grid as grid_ops
 from . import population
+from ..models.poisson_fft import gather_acceleration_fft
 from .physics import Particles
 
 METRIC_KEYS = ("n", "added", "removed", "overflow", "pushes_lo", "pushes_hi")
@@ -44,10 +45,12 @@ def grid_phase(state: SimState, config: SimConfig) -> SimState:
     """Deposit the live particles' charge and store each one's frozen
     acceleration (reference src/grid_operations.cu, src/pic.cu:497-503).
 
-    The path is the JAX package's: the bbox subgrid when ``bbox_subgrid``
-    is set (with its full-grid fallback), else the full grid; both gather
-    the packed diffs.  ``grid_ops.field_counts`` records the path taken and
-    the readbacks (at most two a phase)."""
+    The path is the JAX package's (``field_acceleration``): under the
+    neighbour model the bbox subgrid when ``bbox_subgrid`` is set (with
+    its full-grid fallback), else the full grid, both gathering the packed
+    diffs; under ``field_model="fft"`` the full-grid deposit and the
+    spectral solve (models/poisson_fft.py).  ``grid_ops.field_counts``
+    records the path taken and the readbacks (at most two a phase)."""
     m = state.n_clamped
     pos = state.pos[:m]
     weight = population.is_live(state.status[:m]).to(torch.int32)
@@ -58,6 +61,12 @@ def grid_phase(state: SimState, config: SimConfig) -> SimState:
             pos, weight, config.cell_size, config.grid_size, e,
             subgrid=config.bbox_subgrid,
         )
+    elif config.field_model == "fft":
+        grid_ops.field_counts.note("fft")
+        charge = grid_ops.deposit(pos, weight, config.cell_size,
+                                  config.grid_size)
+        a = gather_acceleration_fft(charge, pos, weight, config.cell_size,
+                                    config.grid_size)
     else:
         grid_ops.field_counts.note("full")
         charge = grid_ops.deposit(pos, weight, config.cell_size,

@@ -18,6 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .constants import TWO_PI_F32
+from .fma import f32_of_f64
+
 GOLDEN = 0x9E3779B9
 _KS_PARITY = 0x1BD11BDA
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
@@ -142,3 +145,20 @@ def setup_uniform(id_hi, id_lo, axis, lo, hi):
     src/particle_move.cu:12-15)."""
     b0, _ = threefry2x32(id_hi, id_lo, SETUP_CTR, axis)
     return uniform_from_bits(b0, lo, hi)
+
+
+
+
+def setup_gaussian(id_hi, id_lo, axis) -> torch.Tensor:
+    """A standard-normal draw per slot for the thermal start (Box-Muller on
+    the block at counter (SETUP_CTR, axis + 8), disjoint from the
+    positions' axes 0..2): ``sqrt(-2 log u1) * cos(2 pi u2)`` with u1
+    clamped to 2^-25, each operation in float32 as the JAX package runs it
+    eagerly.  ``log``, ``sqrt`` and ``cos`` are correctly rounded here
+    (fma.f32_of_f64), so a value can differ from XLA:CPU's by its ``log``
+    and ``cos`` (tests/test_torch_models.py states the measured bound)."""
+    b0, b1 = threefry2x32(id_hi, id_lo, SETUP_CTR, axis + 8)
+    u1 = torch.clamp(uniform_from_bits(b0), min=2.0 ** -25)
+    u2 = uniform_from_bits(b1)
+    r = f32_of_f64(torch.sqrt, -2.0 * f32_of_f64(torch.log, u1))
+    return r * f32_of_f64(torch.cos, TWO_PI_F32 * u2)

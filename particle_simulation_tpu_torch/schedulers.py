@@ -29,7 +29,7 @@ import torch
 
 from .config import SimConfig
 from .ops import population
-from .ops.physics import update_particles
+from .ops.physics import model_args, update_particles
 from .ops.step import active_mask, state_to_particles
 from .state import SimState
 
@@ -53,6 +53,7 @@ def _one_step(state: SimState, t: int, poisson_step: int, table, config,
         p, active=active, t=t, poisson_step=poisson_step,
         dt=config.mobility_dt, sim_size=config.sim_size, seed=config.seed,
         table=table, rng_rounds=config.rng_rounds, rng_mode=config.rng_mode,
+        **model_args(config),
     )
     q = res.particles
     state.pos[lo:hi] = torch.stack([q.px, q.py, q.pz], 1)

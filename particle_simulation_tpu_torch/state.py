@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import rng
@@ -59,7 +60,9 @@ def zero_state(config: SimConfig, device=None) -> SimState:
 def setup_particles(config: SimConfig, slot_offset: int = 0,
                     device=None) -> SimState:
     """Seed ``init_n`` electrons uniformly in the 62-cell cube at the domain
-    centre (reference src/particle_move.cu:7-19), with zero velocity.
+    centre (reference src/particle_move.cu:7-19), with zero velocity, or
+    with ``init_vth * N(0, 1)`` per component when ``config.init_vth`` is
+    set (the JAX package's thermal start, rng.setup_gaussian).
 
     ``slot_offset`` shifts the global particle index that keys the ids, as
     the JAX package's sharded setup uses it.  ``device`` is the card when
@@ -67,8 +70,6 @@ def setup_particles(config: SimConfig, slot_offset: int = 0,
     c, init_n = config.capacity, config.init_n
     if init_n > c:
         raise ValueError(f"init_n {init_n} exceeds capacity {c}")
-    if config.init_vth:
-        raise ValueError("init_vth != 0 is not ported yet")
     device = resolve(device)
     st = zero_state(config, device)
     slots = (torch.arange(c, dtype=torch.int64, device=device) + slot_offset)
@@ -85,8 +86,15 @@ def setup_particles(config: SimConfig, slot_offset: int = 0,
 
     active = torch.arange(c, device=device) < init_n
     zero = torch.zeros((), dtype=torch.int32, device=device)
+    vel = st.vel
+    if config.init_vth:
+        vth = float(np.float32(config.init_vth))
+        vel = torch.stack([vth * rng.setup_gaussian(id_hi, id_lo, ax)
+                           for ax in range(3)], dim=1)
+        vel = torch.where(active[:, None], vel, torch.zeros_like(vel))
     return st._replace(
         pos=torch.where(active[:, None], pos, torch.zeros_like(pos)),
+        vel=vel,
         status=torch.where(
             active, torch.tensor(STATUS_ALIVE, dtype=torch.int32,
                                  device=device), st.status

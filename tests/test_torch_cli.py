@@ -5,8 +5,9 @@ times masked and its PNGs' pixels; the four scheduler modes agreeing on
 the final state through their npz checkpoints; ``bench`` writing the port's
 own CSV; and ``test`` as a subprocess.  What only the port has: the
 ``platform=`` device, ``mesh=`` refused, ``bucket=`` without effect, and
-the model selections it does not run refused through
-``config.check_supported``."""
+the model values it does not run (``precision=f64``, unknown names)
+refused through ``config.check_supported``; the model menu's knobs run
+and print what the JAX CLI prints."""
 
 import dataclasses
 import os
@@ -86,10 +87,19 @@ def test_port_only_options():
         cli.parse_args(base + ["platform=tpu"])
     with pytest.raises(SystemExit, match="Queue 1 item 7"):
         cli.parse_args(base + ["mesh=4"])
-    for unported in ("precision=f64", "field=fft", "bfield=1,0,0",
-                     "integrator=boris", "bbox_subgrid=12"):
+    for unported in ("precision=f64", "field=spectral", "bfield=1,0",
+                     "integrator=rk4", "bbox_subgrid=12"):
         with pytest.raises(SystemExit):
             cli.parse_args(base + [unported])
+    # the model knobs are ported: the JAX package's values parse
+    cfg = cli.parse_args(base + [
+        "field=fft", "bfield=0,0,-1.76e9", "integrator=boris",
+        "collision_model=isotropic", "boundary=periodic",
+        "init_vth=2e6"]).config
+    assert (cfg.field_model, cfg.b_field, cfg.integrator) == (
+        "fft", (0.0, 0.0, -1.76e9), "boris")
+    assert (cfg.collision_model, cfg.boundary, cfg.init_vth) == (
+        "isotropic", "periodic", 2e6)
 
 
 def test_main_without_args_and_unknown_mode():
@@ -117,6 +127,45 @@ def test_scheduler_mode_lines_and_pngs_match_jax(tmp_path, monkeypatch):
         np.testing.assert_array_equal(
             read_png(str(tmp_path / "port" / "out" / "visualization" / name)),
             read_png(str(tmp_path / "jax" / "out" / "visualization" / name)))
+
+
+MODEL_ARGVS = {
+    "magnetized argon": ["integrator=boris", "bfield=0,0,-1.76e9",
+                         "collision_model=isotropic", "boundary=periodic",
+                         "init_vth=2e6"],
+    "fft": ["field=fft", "init_vth=1e5"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_ARGVS))
+def test_model_knobs_run_and_match_jax(tmp_path, monkeypatch, name):
+    """Mode 32 with the model knobs on the CPU: exit 0 and the JAX CLI's
+    lines (counts exact; the times masked), the argon-like table of the
+    magnetized slice written to a file and passed as ``cs=``."""
+    argv = ["32", *RUN[:-1], *MODEL_ARGVS[name], "platform=cpu"]
+    if name == "magnetized argon":
+        from particle_simulation_tpu_torch.cross_section import (
+            argon_like_table, write_table,
+        )
+        table = str(tmp_path / "argon.txt")
+        write_table(table, argon_like_table(gas_density=1e23, dt=1e-12))
+        argv = ["32", *RUN[:-1], f"cs={table}", *MODEL_ARGVS[name],
+                "platform=cpu"]
+    monkeypatch.chdir(tmp_path)
+    code, out = printed(cli.main, argv)
+    ref_code, ref_out = printed(jcli.main, argv)
+    assert code == ref_code == 0
+    assert masked(out) == masked(ref_out)
+
+    def totals(text):
+        return [line for line in text.splitlines() if line.startswith(
+            ("Final amount of particles", "Particles added",
+             "Particles removed"))]
+
+    assert len(totals(out)) == 3
+    for mode in ("30", "33"):  # both engines' plain versions
+        code, engine_out = printed(cli.main, [mode, *argv[1:]])
+        assert code == 0 and totals(engine_out) == totals(out)
 
 
 def test_scheduler_modes_agree_through_checkpoints(tmp_path, monkeypatch):

@@ -1,4 +1,5 @@
-"""The work-log CUDA kernel against its plain PyTorch version, on the card.
+"""The work-log CUDA kernel against its plain PyTorch version, on the card,
+and both engines (work-log and staged) under each model of the menu.
 
 These tests need a CUDA GPU and nvcc and skip elsewhere.  This file imports
 no JAX, so a GPU machine without JAX runs it (skipping conftest.py):
@@ -11,9 +12,10 @@ Tolerance: exact (sorted multiset with ids, and every counter).
 import pytest
 import torch
 
-from particle_simulation_tpu_torch import SimConfig
+from particle_simulation_tpu_torch import SimConfig, cross_section
 from particle_simulation_tpu_torch.cross_section import bundled_paths, load_table
 from particle_simulation_tpu_torch.ops.kernels import build
+from particle_simulation_tpu_torch.ops.kernels import push_mcc as pm
 from particle_simulation_tpu_torch.ops.kernels.worklog import (
     mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
 )
@@ -140,3 +142,63 @@ def test_table_on_the_wrong_device_raises(dev):
     with pytest.raises(ValueError, match="table"):
         mobility_phase_worklog(st, 0, load_table(device="cpu"), cfg,
                                cfg.poisson_timestep)
+
+
+MAGNETIZED_ARGON = dict(integrator="boris", b_field=(0.0, 0.0, -1.76e9),
+                        collision_model="isotropic", boundary="periodic",
+                        init_vth=2.0e6)
+MODELS = {
+    "boris": dict(integrator="boris"),
+    "boris_field": dict(integrator="boris", b_field=(3e11, -5e11, 7e11)),
+    # 0.1 cell a step: lanes cross the faces
+    "periodic": dict(boundary="periodic", mobility_dt=1e-9, init_vth=1e6),
+    "isotropic": dict(collision_model="isotropic"),
+    "thermal": dict(init_vth=2e6),
+    "all": MAGNETIZED_ARGON,
+}
+
+
+@pytest.mark.parametrize("depth", [2, 1])
+@pytest.mark.parametrize("model", list(MODELS))
+def test_models_match_plain_both_engines(dev, model, depth):
+    """Each model through the general instantiations: each engine equal to
+    its plain version, and the two engines equal (exact)."""
+    cfg = SimConfig(**CHURN, **MODELS[model], spawn_depth=depth)
+    table = load_table(bundled_paths()[1], dev)
+    # the thermal start changes the seed state, not the kernel's path
+    assert pm.model_bits(cfg) != 0 or model == "thermal"
+    st = setup_particles(cfg, device=dev)
+    for s in range(2):
+        st = grid_phase(st, cfg)
+        k, ki = mobility_phase_worklog(st, s, table, cfg, cfg.poisson_timestep)
+        p, pi = mobility_phase_worklog_plain(st, s, table, cfg,
+                                             cfg.poisson_timestep)
+        o, oi = pm.mobility_phase_dynamic(st, s, table, cfg,
+                                          cfg.poisson_timestep)
+        assert ki == pi and ki["added"] > 0, (s, ki, pi)
+        assert {key: oi[key] for key in ki} == ki, (s, oi, ki)
+        want = multiset_with_ids(p)
+        assert (multiset_with_ids(k) == want).all()
+        assert (multiset_with_ids(o) == want).all()
+        st = k
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode,rounds", [("block2", 13), ("perstep", 20)])
+def test_all_models_every_instantiation(dev, depth, mode, rounds):
+    """The models together through every general instantiation of the
+    work-log engine (depth x rounds x draw protocol), against its plain
+    version (exact)."""
+    cfg = SimConfig(**CHURN, **MAGNETIZED_ARGON, spawn_depth=depth,
+                    rng_mode=mode, rng_rounds=rounds)
+    table = load_table(bundled_paths()[1], dev)
+    assert _compare(cfg, table, dev)["added"] > 0
+
+
+def test_magnetized_argon_matches_plain(dev):
+    cfg = SimConfig(init_n=20000, capacity=65536, grid_size=(64, 64, 64),
+                    poisson_timestep=100, scheduler="dynamic",
+                    **MAGNETIZED_ARGON)
+    table = torch.from_numpy(cross_section.argon_like_table(1e23, 1e-12))
+    info = _compare(cfg, table.to(dev), dev, steps=2)
+    assert info["added"] > 0

@@ -344,3 +344,42 @@ def test_wrappers_reject_bad_inputs(kernel):
     with pytest.raises(ValueError, match="device"):
         call(*(a.to(meta) if isinstance(a, torch.Tensor) else a
                for a in good))
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN3pst13worklog_phaseILi2ELi13ELb1ELb0EEEvNS_9PhaseArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN3pst13worklog_phaseILi2ELi13ELb1ELb0EEEvNS_9PhaseArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 16 bytes smem
+ptxas info    : Compiling entry function '_ZN3pst13worklog_phaseILi2ELi13ELb1ELb1EEEvNS_9PhaseArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN3pst13worklog_phaseILi2ELi13ELb1ELb1EEEvNS_9PhaseArgsE
+    16 bytes stack frame, 20 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 16 bytes smem
+ptxas info    : Compiling entry function '_ZN3pst6staged12staged_phaseILi1ELi20ELb0EEEvNS0_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN3pst6staged12staged_phaseILi1ELi20ELb0EEEvNS0_4ArgsE
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 85 registers
+ptxas info    : Compiling entry function '_ZN3pst11row_compactEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3pst11row_compactEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers
+"""
+
+
+def test_ptxas_report_parses_the_engines_instantiations():
+    """probes/ptxas.py: each engine instantiation by its template
+    arguments, a checkout without the model switch as its reference."""
+    from particle_simulation_tpu_torch.probes import ptxas
+
+    res = ptxas.phase_resources(PTXAS_LOG)
+    assert res == {
+        ("worklog_phase", 2, 13, True, "reference"): dict(
+            stack=0, spill_stores=0, spill_loads=0, registers=80),
+        ("worklog_phase", 2, 13, True, "general"): dict(
+            stack=16, spill_stores=20, spill_loads=24, registers=96),
+        ("staged_phase", 1, 20, False, "reference"): dict(
+            stack=8, spill_stores=12, spill_loads=16, registers=85),
+    }
+    lines = ptxas.format_lines(PTXAS_LOG)
+    assert len(lines) == 4 and lines[-1].startswith("_ZN3pst11row_compact")
+    assert lines[0].startswith("staged_phase reference depth 1 rounds 20")

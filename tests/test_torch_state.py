@@ -59,21 +59,36 @@ def test_interop_round_trip():
 def test_setup_rejects_bad_configs():
     with pytest.raises(ValueError, match="exceeds capacity"):
         setup_particles(SimConfig(init_n=10, capacity=5))
-    with pytest.raises(ValueError, match="init_vth"):
-        setup_particles(SimConfig(init_n=1, capacity=5, init_vth=1.0))
+    # the thermal start is ported: init_vth seeds Maxwellian velocities
+    st = setup_particles(SimConfig(init_n=1, capacity=5, init_vth=1.0),
+                         device="cpu")
+    assert st.vel[0].abs().sum() > 0 and (st.vel[1:] == 0).all()
 
 
 @pytest.mark.parametrize(
     "knob",
-    [dict(integrator="boris"), dict(collision_model="isotropic"),
-     dict(boundary="periodic"), dict(field_model="fft"),
-     dict(precision="f64"), dict(init_vth=1e5), dict(b_field=(0.0, 0.0, 1.0)),
+    [dict(integrator="rk4"), dict(collision_model="elastic"),
+     dict(boundary="reflect"), dict(field_model="multigrid"),
+     dict(precision="f64"), dict(init_vth=float("nan")),
+     dict(b_field=(0.0, 0.0, float("inf"))),
      dict(rng_mode="other"), dict(spawn_depth=0),
      dict(scheduler="dynamic", poisson_timestep=40000)],
 )
 def test_unported_model_knobs_raise(knob):
     with pytest.raises(ValueError):
         check_supported(SimConfig(**knob))
+
+
+@pytest.mark.parametrize(
+    "knob",
+    [dict(integrator="boris"), dict(collision_model="isotropic"),
+     dict(boundary="periodic"), dict(field_model="fft"),
+     dict(init_vth=1e5), dict(b_field=(0.0, 0.0, 1.0)),
+     dict(integrator="boris", b_field=(0.0, 0.0, -1.76e9),
+          collision_model="isotropic", boundary="periodic", init_vth=2e6)],
+)
+def test_ported_model_knobs_are_accepted(knob):
+    check_supported(SimConfig(**knob))
 
 
 def test_tpu_tuning_knobs_are_accepted():
