@@ -107,6 +107,26 @@ Phases, each printing one line or a few:
        card's field against the CPU's within FFT_CARD_RTOL;
    (d) ``python -m particle_simulation_tpu_torch 30`` with the model knobs
        for 2 steps: exit 0, its final n equal to (b)'s.
+10. the sharded path (parallel/sharded.py, ranks started by
+    parallel/launch.py), its wall time bounded by SHARDED_BUDGET_S; each
+    rank counts its own kernel launches and hands them back, and every
+    rank must import nothing of JAX:
+   (a) NCCL at world size 1, the main path (1M electrons, capacity 2M,
+       256^3, T=100, dynamic) for 4 Poisson steps, replicated and slab
+       (bbox_subgrid=64): the sorted multiset with ids and the per-step
+       counters equal to the single-process ``poisson_loop``, exactly;
+       worklog_phase (and packed_field_gather, replicated) launched in
+       the rank; the ms a step, then again with the collectives timed:
+       each collective's calls, bytes and ms a step;
+   (b) two ranks sharing the card over gloo, 2 x 500k electrons, capacity
+       2 x 1M: replicated and slab (32 planes a rank) on dynamic, and
+       replicated on dynamic_old, each equal to (a) exactly (shard-count
+       invariance on the card), staged_phase launched under dynamic_old;
+       whether MPS runs, and the collectives gloo ran on host copies;
+   (c) NCCL over 2 cards when the machine has them, equal to (a); on one
+       card a line saying why it did not run;
+   (d) ``python -m particle_simulation_tpu_torch 30 ... mesh=1`` at (a)'s
+       size for 2 steps: exit 0, its final n equal to (a)'s.
 
 Any failed check raises, so the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}; the line before it lists
@@ -116,7 +136,9 @@ could take for the same work, from the bytes each input and output must
 move once (3.35 TB/s) and the operations these inputs need (67 TFLOP/s
 float32), whichever is larger (probes/common.py).  The two engines' lines
 add the slice of 9b: ``models_ms`` (the phase's mean over steps 1-3),
-``models_launches``, ``models_passes`` and ``models_bound_ms``.
+``models_launches``, ``models_passes`` and ``models_bound_ms``; the
+engines' and the field gather's lines add ``launches_sharded``, their
+launches in the ranks of 10.
 """
 
 from __future__ import annotations
@@ -193,6 +215,12 @@ FFT_CARD_RTOL = 2e-5
 # 22 a child
 OPS_PER_PUSH_MODELS = OPS_PER_PUSH + 36 + 15
 OPS_PER_ISOTROPIC_CHILD = 22
+# 10: the sharded path at the main path's width, 4 Poisson steps; the phase
+# bounds its own wall time
+SHARDED_STEPS = 4
+SHARDED_BUDGET_S = 120.0
+MESH_ARGV = ["30", "0", "1000000", "2", "256", "2000000", "0", "100",
+             "grid=256"]
 
 
 def log(msg: str) -> None:
@@ -756,6 +784,197 @@ def models_on_card(dev, repo: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"9: the model menu done in {time.perf_counter() - t_phase:.1f} s")
     return result
+
+
+def live_rows(arrays):
+    """Gathered live rows (numpy, the JAX SimState's types) as the int32
+    rows of ``runtime.multiset_with_ids``, in lexicographic order."""
+    import numpy as np
+
+    cols = [arrays["pos"].view(np.int32), arrays["vel"].view(np.int32),
+            arrays["acc"].view(np.int32), arrays["status"][:, None],
+            arrays["id_hi"].view(np.int32)[:, None],
+            arrays["id_lo"].view(np.int32)[:, None]]
+    rows = np.concatenate(cols, axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def mps_status() -> str:
+    """Whether an MPS server runs on the card (nvidia-smi's compute apps)
+    and the card's compute mode."""
+    import subprocess
+
+    def query(*args):
+        return subprocess.run(["nvidia-smi", *args, "--format=csv,noheader"],
+                              capture_output=True, text=True,
+                              check=True).stdout.strip()
+
+    apps = query("--query-compute-apps=pid,process_name")
+    mps = any("mps" in line.lower() for line in apps.splitlines())
+    return (f"MPS {'active' if mps else 'not active'} (compute apps: "
+            f"{apps.splitlines() or 'none'}), compute mode "
+            f"{query('--query-gpu=compute_mode')}")
+
+
+def sharded_on_card(dev, repo: str) -> dict:
+    """Phase 10 (the module docstring): the sharded path on the card, its
+    wall time bounded by SHARDED_BUDGET_S.  Returns each kernel's launches
+    in the ranks."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from particle_simulation_tpu_torch import SimConfig, cross_section
+    from particle_simulation_tpu_torch.ops.step import poisson_loop
+    from particle_simulation_tpu_torch.parallel import launch, sharded
+    from particle_simulation_tpu_torch.runtime import multiset_with_ids
+    from particle_simulation_tpu_torch.state import setup_particles
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    sine = cross_section.load_table(cross_section.bundled_paths()[0], dev)
+
+    def left() -> float:
+        s = SHARDED_BUDGET_S - (time.perf_counter() - t_phase)
+        check(s > 0, f"10: over its {SHARDED_BUDGET_S} s bound")
+        return s
+
+    total = {"worklog_phase": 0, "staged_phase": 0, "packed_field_gather": 0}
+
+    def ranks(tag, n, scenarios, **kw):
+        t0 = time.perf_counter()
+        res = launch.run(sharded.run_scenarios, n, args=(scenarios,),
+                         timeout_s=left(), **kw)
+        for r in res:
+            check(not r[0]["foreign_modules"],
+                  f"10{tag}: a rank imported {r[0]['foreign_modules']}")
+            for sc in r:
+                for k, v in sc["launches"].items():
+                    total[k] += v
+        log(f"10{tag}: {n} rank(s), {res[0][0]['backend']} on "
+            f"{[r[0]['device'] for r in res]}, {len(scenarios)} scenarios "
+            f"in {time.perf_counter() - t0:.1f} s")
+        return res
+
+    # the single-process reference: poisson_loop on the main path
+    base_cfg = SimConfig(**MAIN, poisson_steps=SHARDED_STEPS)
+    st, m = poisson_loop(setup_particles(base_cfg, device=dev),
+                         sine, base_cfg, SHARDED_STEPS)
+    want_rows = multiset_with_ids(st)
+    want_hist = [{"n": m["n"][i], "added": m["added"][i],
+                  "removed": m["removed"][i],
+                  "overflow": int(m["overflow"][i]),
+                  "pushes": m["pushes_lo"][i] + (m["pushes_hi"][i] << 30)}
+                 for i in range(SHARDED_STEPS)]
+    check(all(h["overflow"] == 0 for h in want_hist), "10: overflow")
+    log(f"10: single-process poisson_loop, {SHARDED_STEPS} steps, final "
+        f"n={st.n}; {time.perf_counter() - t_phase:.1f} s")
+    del st
+
+    def same(tag, sc):
+        check(sc["history"] == want_hist,
+              f"10{tag}: history {sc['history']} vs {want_hist}")
+        check(np.array_equal(live_rows(sc["live"]), want_rows),
+              f"10{tag}: the live multiset with ids differs")
+
+    def launched(tag, rank_results, i, needed):
+        for name in needed:
+            got = [r[i]["launches"][name] for r in rank_results]
+            check(all(g > 0 for g in got),
+                  f"10{tag}: {name} launched {got} times in the ranks")
+
+    # ---- 10a. NCCL, world size 1, full width ----
+    slab_cfg = base_cfg.replace(grid_mode="slab")
+    scs = [{"config": base_cfg}, {"config": slab_cfg},
+           {"config": base_cfg, "timed": True, "gather": False},
+           {"config": slab_cfg, "timed": True, "gather": False}]
+    res = ranks("a", 1, scs, device=dev)
+    r0 = res[0]
+    for i, tag in enumerate(("a replicated", "a slab")):
+        same(tag, r0[i])
+        launched(tag, res, i, ["worklog_phase"])
+        ms = r0[i]["step_ms"]
+        log(f"10{tag}: equal to poisson_loop (multiset with ids, "
+            f"counters); ms a step {[round(x, 3) for x in ms]} (steps 1-"
+            f"{len(ms) - 1} mean {np.mean(ms[1:]):.3f}); paths "
+            f"{r0[i]['field_paths']}; launches {r0[i]['launches']}")
+    launched("a replicated", res, 0, ["packed_field_gather"])
+    check(r0[1]["field_paths"]["slab"] > 0,
+          f"10a slab: paths {r0[1]['field_paths']}")
+    comm = {}
+    for i, tag in ((2, "replicated"), (3, "slab")):
+        steps = len(r0[i]["history"])
+        comm[tag] = {k: [c / steps, b / steps, ms / steps]
+                     for k, (c, b, ms) in r0[i]["comm"].items()}
+        log(f"10a {tag}, collectives timed (synchronised): ms a step "
+            f"{[round(x, 3) for x in r0[i]['step_ms']]}; per step "
+            + "; ".join(f"{k}: {c:g} calls, {b:.0f} B, {ms:.4f} ms"
+                        for k, (c, b, ms) in comm[tag].items()))
+    step_ms = float(np.mean(r0[0]["step_ms"][1:]))
+    charge = comm["replicated"]["charge"]
+
+    # ---- 10b. two ranks sharing the card over gloo ----
+    log(f"10b: {mps_status()}")
+    half = base_cfg.replace(init_n=base_cfg.init_n // 2,
+                            capacity=base_cfg.capacity // 2)
+    scs = [{"config": half}, {"config": half.replace(grid_mode="slab")},
+           {"config": half.replace(scheduler="dynamic_old")}]
+    res = ranks("b", 2, scs, device=dev, backend="gloo")
+    for i, tag in enumerate(("b replicated", "b slab",
+                             "b replicated dynamic_old")):
+        same(tag, res[0][i])
+        needed = ["staged_phase" if i == 2 else "worklog_phase"]
+        launched(tag, res, i, needed + (["packed_field_gather"]
+                                        if i != 1 else []))
+        log(f"10{tag}: equal to 10a (multiset with ids, counters); ms a "
+            f"step rank 0 {[round(x, 2) for x in res[0][i]['step_ms']]}; "
+            f"launches {[r[i]['launches'] for r in res]}; host-staged "
+            f"{res[0][i]['host_staged']}, {res[0][i]['host_copies']} host "
+            f"copies on rank 0")
+    check(res[0][1]["field_paths"]["slab"] > 0,
+          f"10b slab: paths {res[0][1]['field_paths']}")
+
+    # ---- 10c. NCCL across cards ----
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        res = ranks("c", 2, [{"config": half}], device=dev)
+        same("c", res[0][0])
+        launched("c", res, 0, ["worklog_phase", "packed_field_gather"])
+        log(f"10c: NCCL over 2 cards equal to 10a; ms a step rank 0 "
+            f"{[round(x, 2) for x in res[0][0]['step_ms']]}")
+    else:
+        log(f"10c: not run: NCCL across cards needs 2, this machine has "
+            f"{cards}")
+
+    # ---- 10d. the CLI with mesh=1 ----
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    argv = [*MESH_ARGV, "mesh=1"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "particle_simulation_tpu_torch", *argv],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=left())
+    for line in proc.stdout.splitlines():
+        log(f"  10d | {line}")
+    check(proc.returncode == 0,
+          f"10d: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    final = [line for line in proc.stdout.splitlines()
+             if line.startswith("Final amount of particles: ")]
+    n_cli = int(final[-1].split(": ")[1])
+    steps = int(MESH_ARGV[3])
+    check(n_cli == want_hist[steps - 1]["n"],
+          f"10d: final n {n_cli} vs 10a's {want_hist[steps - 1]['n']} "
+          f"after {steps} steps")
+    log(f"10d: python -m particle_simulation_tpu_torch {' '.join(argv)}: "
+        f"exit 0, final n {n_cli} equal to 10a's after {steps} steps; "
+        f"{time.perf_counter() - t0:.1f} s")
+    left()
+    log(f"10: the sharded path done in {time.perf_counter() - t_phase:.1f} "
+        f"s (bound {SHARDED_BUDGET_S} s); launches in the ranks {total}")
+    return {"launches": total, "step_ms": step_ms, "charge": charge,
+            "comm": comm}
 
 
 def main() -> int:
@@ -1363,6 +1582,10 @@ def main() -> int:
     # ---- 9. the model menu ----
     models = models_on_card(dev, os.path.dirname(os.path.abspath(__file__)))
 
+    # ---- 10. the sharded path ----
+    shard = sharded_on_card(dev, os.path.dirname(os.path.abspath(__file__)))
+    shard_launches = shard["launches"]
+
     log(json.dumps({"kernels": [{
         "name": "worklog_phase",
         "route": "cuda",
@@ -1370,6 +1593,7 @@ def main() -> int:
         "replaces": "particle_simulation_tpu/ops/pallas/worklog.py:302",
         "launches": launches_worklog,
         "launches_entry_points": entry["worklog_phase"],
+        "launches_sharded": shard_launches["worklog_phase"],
         "passes": passes_worklog,
         "device_busy_share": busy,
         "max_abs_err": max_err,
@@ -1387,6 +1611,7 @@ def main() -> int:
         "replaces": "particle_simulation_tpu/ops/pallas/push_mcc.py:1113",
         "launches": staged_launches,
         "launches_entry_points": entry["staged_phase"],
+        "launches_sharded": shard_launches["staged_phase"],
         "passes": passes_staged,
         "reclaims": reclaims_staged,
         "device_busy_share": old_busy,
@@ -1405,6 +1630,7 @@ def main() -> int:
         "replaces": "scripts/microbench_fieldgather.py:40",
         "launches": field_launches,
         "launches_entry_points": entry["field_gather"],
+        "launches_sharded": shard_launches["packed_field_gather"],
         "max_abs_err": field_err,
         "ms": field_ms,
         "plain_ms": field_plain_ms,

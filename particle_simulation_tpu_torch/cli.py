@@ -10,11 +10,14 @@ Usage:  python -m particle_simulation_tpu_torch 30 0 1000000 10 256 50000000 100
 Keyword overrides after the positional args: grid=, cs=, seed=, field=,
 bfield=, gridmode=, precision=, ckpt=DIR (npz checkpoints on the verbose
 cadence), platform=cpu|cuda (the device; the card by default), bucket=
-(accepted, no effect: the port needs no capacity ladder), mesh= (only 0:
-multi-GPU runs are not ported yet); bench mode: profile=ci|quick|full and
-resume=0/1.  Any other scalar SimConfig field is accepted as key=value,
-coerced by the field's type; unknown keys are an error, and so is a model
-selection the port does not run yet (config.check_supported).
+(accepted, no effect: the port needs no capacity ladder), mesh=N (modes
+30-33: shard the particles over N ranks, parallel/sharded.py; INIT_N and
+MAX_N stay global totals, divided over the ranks; NCCL with one card a
+rank, or N gloo ranks on the CPU with platform=cpu); bench mode:
+profile=ci|quick|full and resume=0/1.  Any other scalar SimConfig field
+is accepted as key=value, coerced by the field's type; unknown keys are an
+error, and so is a model selection the port does not run yet
+(config.check_supported).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class CliOptions:
     bench_profile: str = "full"   # bench mode: profile=ci|quick|full
     bench_resume: bool = False    # bench mode: resume=1 continues the CSV
     device: Optional[str] = None  # platform=cpu|cuda; None: the card
+    mesh: int = 0                 # 0: one process; N: N ranks (mesh=N)
 
 
 def parse_args(argv) -> CliOptions:
@@ -87,10 +91,7 @@ def parse_args(argv) -> CliOptions:
         elif key == "ckpt":
             opts.ckpt_dir = val
         elif key == "mesh":
-            if int(val):
-                raise SystemExit(
-                    f"mesh={val}: multi-GPU runs are not ported yet "
-                    "(ROADMAP.md Queue 1 item 7)")
+            opts.mesh = int(val)
         elif key == "bucket":
             int(val)  # accepted as in the JAX CLI; the port has no ladder
         elif key == "profile":
@@ -128,6 +129,36 @@ def parse_args(argv) -> CliOptions:
     return opts
 
 
+def _run_sharded(opts: CliOptions) -> None:
+    """A run sharded over ``opts.mesh`` ranks (JAX cli.py ``_run_sharded``):
+    INIT_N and MAX_N are global totals, divided over the ranks."""
+    import torch
+
+    from .parallel import launch, sharded
+
+    n = opts.mesh
+    device = torch.device(opts.device or "cuda")
+    if device.type == "cuda" and torch.cuda.device_count() < n:
+        raise SystemExit(
+            f"mesh={n} needs one card a rank, but "
+            f"{torch.cuda.device_count()} are visible; platform=cpu runs "
+            f"{n} gloo ranks on the CPU")
+    cfg = opts.config
+    per_shard = cfg.replace(
+        init_n=max(1, cfg.init_n // n), capacity=max(128, cfg.capacity // n))
+    print(
+        f"PIC sharded over {n} devices: per-shard init_n={per_shard.init_n} "
+        f"capacity={per_shard.capacity}", flush=True)
+    results = launch.run(sharded.run_scenarios, n,
+                         args=([{"config": per_shard, "gather": False}],),
+                         device=device)
+    run = results[0][0]
+    history = run["history"]
+    print(f"Final amount of particles: {run['final_n']}")
+    print(f"Particles added: {sum(h['added'] for h in history)}")
+    print(f"Particles removed: {sum(h['removed'] for h in history)}")
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
@@ -142,6 +173,8 @@ def main(argv=None) -> int:
 
         run_benchmark(profile=opts.bench_profile, resume=opts.bench_resume,
                       device=opts.device)
+    elif mode in SCHEDULER_MODES and opts.mesh:
+        _run_sharded(opts)
     elif mode in SCHEDULER_MODES:
         from .observability import make_log_hook
         from .runtime import run_pic

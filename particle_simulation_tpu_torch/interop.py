@@ -60,3 +60,19 @@ def table_from_numpy(table, device=None) -> torch.Tensor:
     if a.shape != (N_STEPS, 2):
         raise ValueError(f"table has shape {a.shape}, expected ({N_STEPS}, 2)")
     return torch.from_numpy(a.copy()).to(device)
+
+
+def shard_from_numpy(arrays: dict, rank: int, size: int,
+                     device=None) -> SimState:
+    """Rank ``rank``'s shard of a JAX sharded state given as numpy arrays
+    (``parallel/sharded.setup_sharded``'s layout: the capacity axis in
+    ``size`` equal blocks, ``n`` of shape (size,)) -> the port's state of
+    that rank on ``device`` (the card when None, device.resolve)."""
+    n = np.asarray(arrays["n"]).reshape(-1)
+    if n.shape != (size,):
+        raise ValueError(f"n has shape {n.shape}, expected ({size},)")
+    c = np.asarray(arrays["status"]).shape[0] // size
+    block = {k: np.asarray(arrays[k])[rank * c:(rank + 1) * c]
+             for k in FIELDS if k != "n"}
+    block["n"] = n[rank]
+    return state_from_numpy(block, device)

@@ -37,11 +37,12 @@ class FieldCounts:
     """What the field phases took since the last ``reset``: ``subgrid``,
     ``window_fallback`` (the box did not fit the window), ``full``
     (``bbox_subgrid=0``) and ``fft`` (``field_model="fft"``) per field
-    phase, ``rows_fallback`` per 10-bit
+    phase, ``slab`` per sharded field phase on x-slabs
+    (``parallel.sharded``), ``rows_fallback`` per 10-bit
     misfit, ``readbacks`` per value read back to the host, ``last`` the
     path of the latest field phase."""
 
-    PATHS = ("subgrid", "window_fallback", "full", "fft")
+    PATHS = ("subgrid", "window_fallback", "full", "fft", "slab")
 
     def __init__(self):
         self.reset()
@@ -88,19 +89,22 @@ def deposit(pos, weight, cell_size, grid_size) -> torch.Tensor:
     return charge.index_add_(0, flat.long(), weight.to(torch.int32))
 
 
+def axis_diff(c: torch.Tensor, axis: int) -> torch.Tensor:
+    """c[+1] - c[-1] along ``axis`` of an int32 grid, missing neighbours
+    0."""
+    n = c.shape[axis]
+    up = torch.zeros_like(c)
+    down = torch.zeros_like(c)
+    up.narrow(axis, 0, n - 1).copy_(c.narrow(axis, 1, n - 1))
+    down.narrow(axis, 1, n - 1).copy_(c.narrow(axis, 0, n - 1))
+    return up - down
+
+
 def _int_diffs(charge_flat, grid_size):
     """The stencil as integer neighbour differences charge[+1] - charge[-1]
     per axis, missing neighbours 0: three int32 grids."""
     c = charge_flat.reshape(grid_size)
-    out = []
-    for axis in range(3):
-        n = c.shape[axis]
-        up = torch.zeros_like(c)
-        down = torch.zeros_like(c)
-        up.narrow(axis, 0, n - 1).copy_(c.narrow(axis, 1, n - 1))
-        down.narrow(axis, 1, n - 1).copy_(c.narrow(axis, 0, n - 1))
-        out.append(up - down)
-    return tuple(out)
+    return tuple(axis_diff(c, axis) for axis in range(3))
 
 
 def gather_acceleration(charge_flat, pos, weight, cell_size, grid_size,
@@ -169,6 +173,12 @@ def bbox_window(idx, weight, grid_size, subgrid: int):
     at the global edge) change no value: no live particle lies outside the
     box, so every cell outside it holds zero charge."""
     lo, hi = live_bbox(idx, weight, grid_size)
+    return fit_window(lo, hi, grid_size, subgrid)
+
+
+def fit_window(lo, hi, grid_size, subgrid: int):
+    """(origin, fits) of the bounds ``lo``, ``hi`` ((3,) int32 tensors),
+    read back to the host at once: the window test of ``bbox_window``."""
     lo_hi = torch.cat([lo, hi]).tolist()
     field_counts.readbacks += 1
     lo, hi = lo_hi[:3], lo_hi[3:]

@@ -78,18 +78,18 @@ def grid_phase(state: SimState, config: SimConfig) -> SimState:
     return state._replace(acc=acc)
 
 
-def poisson_step(
+def mobility_step(
     state: SimState, poisson_index: int, table: torch.Tensor,
     config: SimConfig, phase: Optional[Callable] = None,
 ) -> Tuple[SimState, Dict]:
-    """One Poisson step; returns (compacted state, metrics).
-
-    ``phase`` overrides the scheduler's mobility phase (``chip_smoke.py``
-    runs each engine's kernel and its plain version side by side with it)."""
+    """The mobility phase of one Poisson step on a state whose field phase
+    has run, and the compaction with its accounting; returns (compacted
+    state, metrics).  A self-compacting phase reports added and overflow
+    itself; any other is compacted here, the rows it reclaimed mid-phase
+    folded back into added and removed.  ``parallel.sharded`` calls it
+    after its own field phase."""
     from ..schedulers import get_mobility_phase
 
-    check_supported(config)
-    state = grid_phase(state, config)
     n_start = state.n_clamped
     phase = phase or get_mobility_phase(config.scheduler)
     state, info = phase(
@@ -116,6 +116,19 @@ def poisson_step(
         "pushes_lo": info["pushes_lo"],
         "pushes_hi": info["pushes_hi"],
     }
+
+
+def poisson_step(
+    state: SimState, poisson_index: int, table: torch.Tensor,
+    config: SimConfig, phase: Optional[Callable] = None,
+) -> Tuple[SimState, Dict]:
+    """One Poisson step; returns (compacted state, metrics).
+
+    ``phase`` overrides the scheduler's mobility phase (``chip_smoke.py``
+    runs each engine's kernel and its plain version side by side with it)."""
+    check_supported(config)
+    state = grid_phase(state, config)
+    return mobility_step(state, poisson_index, table, config, phase=phase)
 
 
 def poisson_loop(

@@ -4,7 +4,7 @@ lists, errors included; the printed lines of a scheduler mode with the
 times masked and its PNGs' pixels; the four scheduler modes agreeing on
 the final state through their npz checkpoints; ``bench`` writing the port's
 own CSV; and ``test`` as a subprocess.  What only the port has: the
-``platform=`` device, ``mesh=`` refused, ``bucket=`` without effect, and
+``platform=`` device, ``mesh=N`` parsed, ``bucket=`` without effect, and
 the model values it does not run (``precision=f64``, unknown names)
 refused through ``config.check_supported``; the model menu's knobs run
 and print what the JAX CLI prints."""
@@ -85,8 +85,10 @@ def test_port_only_options():
         cli.parse_args(base).config
     with pytest.raises(SystemExit, match="platform"):
         cli.parse_args(base + ["platform=tpu"])
-    with pytest.raises(SystemExit, match="Queue 1 item 7"):
-        cli.parse_args(base + ["mesh=4"])
+    # mesh=N parses to N ranks (the run: tests/test_torch_sharded.py)
+    assert cli.parse_args(base + ["mesh=4"]).mesh == 4
+    assert cli.parse_args(base + ["mesh=4"]).config == \
+        cli.parse_args(base).config
     for unported in ("precision=f64", "field=spectral", "bfield=1,0",
                      "integrator=rk4", "bbox_subgrid=12"):
         with pytest.raises(SystemExit):

@@ -22,6 +22,8 @@ MODULES = [
     "particle_simulation_tpu_torch.device",
     "particle_simulation_tpu_torch.fma",
     "particle_simulation_tpu_torch.interop",
+    "particle_simulation_tpu_torch.models",
+    "particle_simulation_tpu_torch.models.poisson_fft",
     "particle_simulation_tpu_torch.observability",
     "particle_simulation_tpu_torch.rng",
     "particle_simulation_tpu_torch.runtime",
@@ -41,13 +43,18 @@ MODULES = [
     "particle_simulation_tpu_torch.ops.kernels.push_mcc",
     "particle_simulation_tpu_torch.ops.kernels.sublane_gather",
     "particle_simulation_tpu_torch.ops.kernels.worklog",
+    "particle_simulation_tpu_torch.parallel",
+    "particle_simulation_tpu_torch.parallel.launch",
+    "particle_simulation_tpu_torch.parallel.sharded",
     "particle_simulation_tpu_torch.probes",
     "particle_simulation_tpu_torch.probes.common",
     "particle_simulation_tpu_torch.probes.experiment_sublane_gather",
     "particle_simulation_tpu_torch.probes.experiment_worklog",
+    "particle_simulation_tpu_torch.probes.gloo_cuda",
     "particle_simulation_tpu_torch.probes.microbench_fieldgather",
     "particle_simulation_tpu_torch.probes.microbench_lookup",
     "particle_simulation_tpu_torch.probes.probe_times",
+    "particle_simulation_tpu_torch.probes.ptxas",
     "particle_simulation_tpu_torch.probes.step_times",
     "particle_simulation_tpu_torch.probes.sweep_sensitivity",
     "particle_simulation_tpu_torch.probes.worklog_phase",
