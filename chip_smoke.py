@@ -127,6 +127,29 @@ Phases, each printing one line or a few:
        card a line saying why it did not run;
    (d) ``python -m particle_simulation_tpu_torch 30 ... mesh=1`` at (a)'s
        size for 2 steps: exit 0, its final n equal to (a)'s.
+11. the float64 oracle mode (``precision="f64"``: positions and
+    velocities in float64 on the plain schedulers, no kernel; its field
+    phase the float64 gather), its wall time bounded by F64_BUDGET_S;
+    each run with the launch counts at 0 before it, every f64 run
+    launching none:
+   (a) tests/test_oracle.py's invariants on the card: with the const
+       table, f32 ``dynamic`` (the kernel) and f32 ``sync`` against f64
+       ``sync``: n, added and the id multiset exactly equal; with the
+       sine table n equal, vel within rtol 2e-5 and pos within rtol 1e-5;
+   (b) f64 at the main path's size (1M electrons, capacity 4M, 256^3,
+       T=100, the sine table, 2 steps): ``sync`` equal to ``naive``
+       (multiset with ids, per-step counters), each one's ms a step, and
+       the final n beside the f32 ``dynamic`` run's;
+   (c) f64 ``naive`` at the const churn of 4a for 2 steps, the card
+       against the CPU: multiset with ids and counters, bit for bit (the
+       CPU tests hold f64 to JAX bit for bit);
+   (d) a float64 npz of an f64 run resumes (``checkpoint.resume_run``)
+       equal to the uninterrupted run, and loads rounded by value under
+       f32; ``python -m particle_simulation_tpu_torch 31 ...
+       precision=f64`` exits 0, mode 30 exits non-zero with the engines'
+       message;
+   (e) ``probes/weak_scaling.py``: a row at each world size the cards
+       allow (one card: world size 1 over NCCL, then its stop line).
 
 Any failed check raises, so the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}; the line before it lists
@@ -134,11 +157,12 @@ the kernels with their launches on their path, their times, the plain
 version's and the library call's, and the bound: the least time the H100
 could take for the same work, from the bytes each input and output must
 move once (3.35 TB/s) and the operations these inputs need (67 TFLOP/s
-float32), whichever is larger (probes/common.py).  The two engines' lines
+float32), whichever is larger (probes/common.py); the line before that
+repeats the card's name and power limit.  The two engines' lines
 add the slice of 9b: ``models_ms`` (the phase's mean over steps 1-3),
 ``models_launches``, ``models_passes`` and ``models_bound_ms``; the
 engines' and the field gather's lines add ``launches_sharded``, their
-launches in the ranks of 10.
+launches in the ranks of 10, and ``launches_phase11``, theirs in 11.
 """
 
 from __future__ import annotations
@@ -221,6 +245,20 @@ SHARDED_STEPS = 4
 SHARDED_BUDGET_S = 120.0
 MESH_ARGV = ["30", "0", "1000000", "2", "256", "2000000", "0", "100",
              "grid=256"]
+# 11: the float64 oracle mode.  (a) tests/test_oracle.py's two
+# configurations (the const table with the first, the sine table with the
+# second); (b) the main path at capacity 4M (the naive cadence keeps a
+# step's dead rows, as in 8a), 2 Poisson steps; (c) the const churn of 4a
+# on the naive cadence, whose container holds a phase's appends (about
+# 720k rows): 1M; (d) the CLI at a size the CPU tests run
+ORACLE_CONST = dict(init_n=200, capacity=20_000, poisson_steps=3,
+                    poisson_timestep=6, grid_size=(32, 32, 32))
+ORACLE_SINE = dict(init_n=100, capacity=1000, poisson_steps=2,
+                   poisson_timestep=8, grid_size=(32, 32, 32))
+F64_MAIN = dict(MAIN, capacity=4_000_000, poisson_steps=2)
+F64_CHURN = dict(CHURN, capacity=1 << 20, poisson_steps=2, scheduler="naive")
+F64_CLI_ARGV = ["0", "2000", "2", "256", "65536", "0", "6", "grid=32"]
+F64_BUDGET_S = 150.0
 
 
 def log(msg: str) -> None:
@@ -977,6 +1015,221 @@ def sharded_on_card(dev, repo: str) -> dict:
             "comm": comm}
 
 
+def f64_on_card(dev, repo: str) -> dict:
+    """Phase 11 (the module docstring): the float64 oracle mode, the
+    checkpoints and the CLI in it, and the weak-scaling probe, the wall
+    time bounded by F64_BUDGET_S.  Returns the kernels' launches in the
+    phase (11a's and 11b's float32 ``dynamic`` runs, 11e's rank) and the
+    numbers PERF.md reports."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from particle_simulation_tpu_torch import SimConfig, checkpoint
+    from particle_simulation_tpu_torch import cross_section
+    from particle_simulation_tpu_torch.ops import grid as grid_ops
+    from particle_simulation_tpu_torch.parallel.sharded import kernel_counters
+    from particle_simulation_tpu_torch.probes import weak_scaling
+    from particle_simulation_tpu_torch.runtime import multiset_with_ids, run_pic
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels = kernel_counters()
+    total = dict.fromkeys(kernels, 0)
+    const = cross_section.bundled_paths()[1]
+    out = {}
+
+    def left() -> float:
+        s = F64_BUDGET_S - (time.perf_counter() - t_phase)
+        check(s > 0, f"11: over its {F64_BUDGET_S} s bound")
+        return s
+
+    def counted(tag, cfg, need=(), device=dev):
+        """run_pic of ``cfg`` with the launch counts at 0 before it; every
+        kernel in ``need`` must launch, and a float64 run none (its field
+        phase must take the float64 gather at every step)."""
+        for k in kernels.values():
+            k.launches = 0
+        grid_ops.field_counts.reset()
+        run = run_pic(cfg, print_header=False, device=device)
+        got = {name: k.launches for name, k in kernels.items()}
+        for name in need:
+            check(got[name] > 0, f"11{tag}: {name} launched {got[name]} "
+                  "times")
+        if cfg.precision == "f64":
+            check(not any(got.values()), f"11{tag}: f64 launched {got}")
+            check(run.state.pos.dtype == torch.float64,
+                  f"11{tag}: positions {run.state.pos.dtype}")
+            paths = grid_ops.field_counts.paths
+            check(paths["f64"] == len(run.steps) == sum(paths.values()),
+                  f"11{tag}: field paths {paths}")
+        for name, v in got.items():
+            total[name] += v
+        return run
+
+    def ids(state):
+        n = state.n_clamped
+        words = torch.stack([state.id_hi[:n], state.id_lo[:n]], 1).cpu()
+        rows = words.numpy()
+        return rows[np.lexsort(rows.T[::-1])]
+
+    def counters(run):
+        return [(s.n, s.added, s.removed, s.overflow, s.pushes)
+                for s in run.steps]
+
+    # ---- 11a. tests/test_oracle.py's invariants on the card ----
+    cfg = SimConfig(**ORACLE_CONST, cross_section_path=const)
+    r64 = counted("a const f64 sync", cfg.replace(scheduler="sync",
+                                                  precision="f64"))
+    for sched, need in (("dynamic", ("worklog_phase",)), ("sync", ())):
+        r32 = counted(f"a const f32 {sched}", cfg.replace(scheduler=sched),
+                      need)
+        check([(s.n, s.added) for s in r32.steps]
+              == [(s.n, s.added) for s in r64.steps],
+              f"11a const: f32 {sched} {counters(r32)} vs f64 "
+              f"{counters(r64)}")
+        check(np.array_equal(ids(r32.state), ids(r64.state)),
+              f"11a const: the id multisets of f32 {sched} and f64 differ")
+    check(sum(s.added for s in r64.steps) > 0, "11a const: no split")
+    log(f"11a const table: f32 dynamic (the kernel) and f32 sync equal to "
+        f"f64 sync on n, added and the id multiset; n "
+        f"{[s.n for s in r64.steps]}, added {[s.added for s in r64.steps]}")
+    cfg = SimConfig(**ORACLE_SINE, scheduler="sync")
+    r32 = counted("a sine f32", cfg)
+    r64 = counted("a sine f64", cfg.replace(precision="f64"))
+    n = r32.final_n
+    check(n == r64.final_n > 0, f"11a sine: n {n} vs {r64.final_n}")
+    rel = {}
+    for f, rtol, atol in (("vel", 2e-5, 1e-12), ("pos", 1e-5, 0.0)):
+        a = getattr(r32.state, f)[:n].double().cpu().numpy()
+        b = getattr(r64.state, f)[:n].cpu().numpy()
+        check(np.allclose(a, b, rtol=rtol, atol=atol),
+              f"11a sine: {f} outside rtol {rtol}")
+        rel[f] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+    log(f"11a sine table: n {n} equal; f32 against f64 largest relative "
+        f"difference vel {rel['vel']:.3e} (rtol 2e-5), pos "
+        f"{rel['pos']:.3e} (rtol 1e-5)")
+    left()
+
+    # ---- 11b. f64 at the main path's size ----
+    t0 = time.perf_counter()
+    cfg = SimConfig(**F64_MAIN, precision="f64")
+    runs = {}
+    for sched in ("sync", "naive"):
+        runs[sched] = r = counted(f"b {sched}", cfg.replace(scheduler=sched))
+        ms = [s.wall_s * 1e3 for s in r.steps]
+        out[f"f64_{sched}_ms"] = ms
+        log(f"11b f64 {sched}: ms a step {[round(x, 1) for x in ms]} "
+            f"(mean {np.mean(ms):.1f}); n {[s.n for s in r.steps]}")
+        left()
+    check(counters(runs["sync"]) == counters(runs["naive"]),
+          f"11b: sync {counters(runs['sync'])} vs naive "
+          f"{counters(runs['naive'])}")
+    check(np.array_equal(multiset_with_ids(runs["sync"].state),
+                         multiset_with_ids(runs["naive"].state)),
+          "11b: the f64 sync and naive multisets differ")
+    n64 = runs["sync"].final_n
+    del runs
+    r32 = counted("b f32 dynamic", cfg.replace(precision="f32",
+                                               scheduler="dynamic"),
+                  ("worklog_phase", "packed_field_gather"))
+    out["f64_final_n"], out["f32_final_n"] = n64, r32.final_n
+    log(f"11b: f64 sync equal to f64 naive (multiset with ids, counters); "
+        f"final n f64 {n64}, f32 dynamic {r32.final_n}, relative "
+        f"difference {(r32.final_n - n64) / n64:+.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del r32
+    left()
+
+    # ---- 11c. the card against the CPU in f64 ----
+    t0 = time.perf_counter()
+    cfg = SimConfig(**F64_CHURN, cross_section_path=const, precision="f64")
+    card = counted("c card", cfg)
+    cpu = run_pic(cfg, print_header=False, device="cpu")
+    check(counters(card) == counters(cpu),
+          f"11c: card {counters(card)} vs CPU {counters(cpu)}")
+    check(np.array_equal(multiset_with_ids(card.state),
+                         multiset_with_ids(cpu.state)),
+          "11c: the card's f64 multiset differs from the CPU's")
+    log(f"11c: f64 naive at the const churn, card equal to CPU bit for bit "
+        f"(multiset with ids, counters {counters(card)}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    left()
+
+    # ---- 11d. float64 checkpoints, the CLI ----
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    cli = [sys.executable, "-m", "particle_simulation_tpu_torch"]
+    procs = {mode: subprocess.Popen(
+        [*cli, mode, *F64_CLI_ARGV, f"cs={const}", "precision=f64"],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for mode in ("31", "30")}
+    cfg = SimConfig(**ORACLE_CONST, cross_section_path=const,
+                    scheduler="sync", precision="f64", verbose=1)
+    with tempfile.TemporaryDirectory() as d:
+        full = run_pic(cfg, print_header=False, device=dev,
+                       on_step=checkpoint.make_checkpoint_hook(cfg, d))
+        for t in range(2, cfg.poisson_steps + 1):
+            os.remove(os.path.join(d, f"step_{t:06d}.npz"))
+        resumed = checkpoint.resume_run(cfg, d, device=dev)
+        check([s.n for s in resumed.steps] == [s.n for s in full.steps[1:]],
+              "11d: the resumed steps differ")
+        check(np.array_equal(multiset_with_ids(resumed.state),
+                             multiset_with_ids(full.state)),
+              "11d: the resumed f64 run differs from the uninterrupted one")
+        path = os.path.join(d, "step_000001.npz")
+        st32, _ = checkpoint.load_npz(path, dev)
+        with np.load(path) as z:
+            check(z["pos"].dtype == np.float64, "11d: not a float64 file")
+            for f in ("pos", "vel"):
+                check(np.array_equal(getattr(st32, f).cpu().numpy(),
+                                     z[f].astype(np.float32)),
+                      f"11d: {f} not converted by value under f32")
+    log("11d: a float64 checkpoint resumes equal to the uninterrupted f64 "
+        "run (multiset with ids); under f32 it loads rounded by value")
+    res = {m: p.communicate(timeout=left()) for m, p in procs.items()}
+    for line in res["31"][0].splitlines():
+        log(f"  11d 31 | {line}")
+    check(procs["31"].returncode == 0,
+          f"11d: mode 31 precision=f64 exit {procs['31'].returncode}: "
+          f"{res['31'][1][-2000:]}")
+    want = "the fused work-log engine is f32-only; use scheduler='sync'"
+    check(procs["30"].returncode != 0 and want in res["30"][1],
+          f"11d: mode 30 precision=f64 exit {procs['30'].returncode}: "
+          f"{res['30'][1][-500:]}")
+    log(f"11d: mode 31 precision=f64 exit 0; mode 30 precision=f64 exit "
+        f"{procs['30'].returncode}: {res['30'][1].strip().splitlines()[-1]}"
+        f"; {time.perf_counter() - t0:.1f} s")
+    left()
+
+    # ---- 11e. the weak-scaling probe ----
+    t0 = time.perf_counter()
+    rows = weak_scaling.sweep(max_ranks=4, device=dev, timeout_s=left())
+    cards = torch.cuda.device_count()
+    check(len(rows) == min(cards, 4).bit_length(),
+          f"11e: {len(rows)} rows on {cards} cards")
+    for r in rows:
+        check(r["launches"]["worklog_phase"] > 0,
+              f"11e: worklog_phase launched {r['launches']} in rank 0")
+        check(r["final_n"] > 0 and r["charge_bytes_step"]
+              == 4 * 256 ** 3, f"11e: row {r}")
+        total["worklog_phase"] += r["launches"]["worklog_phase"]
+        total["packed_field_gather"] += r["launches"]["packed_field_gather"]
+    out["weak_scaling"] = [{k: v for k, v in r.items() if k != "comm"}
+                           for r in rows]
+    log(f"11e: {len(rows)} row(s) in {time.perf_counter() - t0:.1f} s")
+    left()
+    log(f"11: the f64 oracle, its checkpoints and CLI, the weak-scaling "
+        f"probe done in {time.perf_counter() - t_phase:.1f} s (bound "
+        f"{F64_BUDGET_S} s); launches {total}")
+    out["launches"] = total
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1586,6 +1839,10 @@ def main() -> int:
     shard = sharded_on_card(dev, os.path.dirname(os.path.abspath(__file__)))
     shard_launches = shard["launches"]
 
+    # ---- 11. the f64 oracle mode, its checkpoints, the weak-scaling probe
+    oracle = f64_on_card(dev, os.path.dirname(os.path.abspath(__file__)))
+
+    log(card())  # again here, so the end of the output names the card
     log(json.dumps({"kernels": [{
         "name": "worklog_phase",
         "route": "cuda",
@@ -1594,6 +1851,7 @@ def main() -> int:
         "launches": launches_worklog,
         "launches_entry_points": entry["worklog_phase"],
         "launches_sharded": shard_launches["worklog_phase"],
+        "launches_phase11": oracle["launches"]["worklog_phase"],
         "passes": passes_worklog,
         "device_busy_share": busy,
         "max_abs_err": max_err,
@@ -1612,6 +1870,7 @@ def main() -> int:
         "launches": staged_launches,
         "launches_entry_points": entry["staged_phase"],
         "launches_sharded": shard_launches["staged_phase"],
+        "launches_phase11": oracle["launches"]["staged_phase"],
         "passes": passes_staged,
         "reclaims": reclaims_staged,
         "device_busy_share": old_busy,
@@ -1631,6 +1890,7 @@ def main() -> int:
         "launches": field_launches,
         "launches_entry_points": entry["field_gather"],
         "launches_sharded": shard_launches["packed_field_gather"],
+        "launches_phase11": oracle["launches"]["packed_field_gather"],
         "max_abs_err": field_err,
         "ms": field_ms,
         "plain_ms": field_plain_ms,

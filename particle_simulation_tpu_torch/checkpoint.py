@@ -15,9 +15,10 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from . import interop
-from .config import SimConfig
+from .config import SimConfig, float_dtype
 from .state import SimState
 
 
@@ -27,11 +28,14 @@ def save_npz(path: str, state: SimState, poisson_step: int) -> None:
                         **interop.state_to_numpy(state))
 
 
-def load_npz(path: str, device=None) -> Tuple[SimState, int]:
-    """(state on ``device``, the card when None; its Poisson step)."""
+def load_npz(path: str, device=None,
+             dtype: torch.dtype = torch.float32) -> Tuple[SimState, int]:
+    """(state on ``device``, the card when None; its Poisson step).  The
+    positions and velocities are converted by value to ``dtype``
+    (``interop.state_from_numpy``), whatever type the file holds."""
     with np.load(path) as z:
         state = interop.state_from_numpy(
-            {f: z[f] for f in interop.FIELDS}, device)
+            {f: z[f] for f in interop.FIELDS}, device, dtype)
         return state, int(z["poisson_step"])
 
 
@@ -64,14 +68,16 @@ def make_checkpoint_hook(config: SimConfig, ckpt_dir: str):
 
 
 def resume_run(config: SimConfig, ckpt_dir: str, device=None):
-    """Restore the latest checkpoint onto ``device`` (the card when None)
-    and run the rest of ``config.poisson_steps`` from there."""
+    """Restore the latest checkpoint onto ``device`` (the card when None),
+    its floats in the config's type (``float_dtype``), and run the rest of
+    ``config.poisson_steps`` from there."""
     from .runtime import run_pic
 
     step = latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    state, _ = load_npz(_npz_path(ckpt_dir, step), device)
+    state, _ = load_npz(_npz_path(ckpt_dir, step), device,
+                        float_dtype(config))
     remaining = config.poisson_steps - step
     if remaining <= 0:
         raise ValueError(f"checkpoint step {step} is beyond the configured run")

@@ -11,8 +11,11 @@ three groups here:
 * the model menu (integrator, collision_model, boundary, field_model,
   init_vth, b_field): every value the JAX package runs is honoured, by the
   plain schedulers and both CUDA engines; ``check_supported`` raises on an
-  unknown value and on ``precision="f64"``, the JAX package's float64
-  oracle mode, which the port does not run yet;
+  unknown value;
+* ``precision``: "f32", or "f64", the JAX package's float64 oracle mode
+  (positions and velocities in float64, ``float_dtype``), which the plain
+  schedulers ``naive`` and ``sync`` run on either device and the engines
+  refuse, as the JAX package's do;
 * tuning knobs of the TPU kernels (lookup_*, kernel_*, worklog_unroll,
   worklog_horizon, worklog_align, worklog_start_buckets,
   worklog_spawn_guard, append_window, grid_mode; and bbox_hist_lanes,
@@ -28,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Tuple
+
+import torch
 
 from . import constants
 
@@ -116,6 +121,24 @@ MODEL_VALUES = {
 }
 
 
+# the engines that run float32 only: scheduler -> the engine's name
+F32_ENGINES = {"dynamic": "work-log", "dynamic_old": "staged"}
+
+
+def f32_only(engine: str) -> str:
+    """The JAX package's message for a float64 state given to a fused
+    engine."""
+    return (f"the fused {engine} engine is f32-only; use scheduler='sync' "
+            "or 'naive' for f64 oracle runs")
+
+
+def float_dtype(config: SimConfig) -> torch.dtype:
+    """The type of the positions and velocities: float64 under
+    ``precision="f64"``, else float32 (the acceleration is always
+    float32)."""
+    return torch.float64 if config.precision == "f64" else torch.float32
+
+
 def check_supported(config: SimConfig) -> None:
     """Raise ValueError for any model selection the port does not run, and
     for values the engines cannot represent."""
@@ -124,10 +147,12 @@ def check_supported(config: SimConfig) -> None:
             raise ValueError(
                 f"unknown {name}={getattr(config, name)!r} (one of {values})"
             )
-    if config.precision != "f32":
+    if config.precision not in ("f32", "f64"):
         raise ValueError(
-            f"precision={config.precision!r} is not ported yet (only 'f32')"
+            f"unknown precision={config.precision!r} (one of 'f32', 'f64')"
         )
+    if config.precision == "f64" and config.scheduler in F32_ENGINES:
+        raise ValueError(f32_only(F32_ENGINES[config.scheduler]))
     if not math.isfinite(config.init_vth):
         raise ValueError(f"init_vth={config.init_vth!r} must be finite")
     if (len(config.b_field) != 3

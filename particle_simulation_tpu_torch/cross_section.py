@@ -11,13 +11,14 @@ package's tables) and ``write_table`` stores it in the reference's format.
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
 import torch
 
 from .device import resolve
-from .fma import fma_f32
+from .fma import elementary, fma, fma_f32
 
 N_STEPS = 10000
 
@@ -32,6 +33,9 @@ _BUNDLED_CONST = os.path.join(_DATA, "cross_section_const.txt")
 # float32(N_STEPS / 22)
 LOG10_E = np.float32(0.4342944920063019)
 BUCKET_SCALE = np.float32(N_STEPS / 22.0)
+# the same two constants in float64 (precision="f64")
+LOG10_E_F64 = 1.0 / math.log(10.0)
+BUCKET_SCALE_F64 = N_STEPS / 22.0
 
 
 def bundled_paths() -> tuple[str, str]:
@@ -117,7 +121,13 @@ def energy_to_index(energy: torch.Tensor) -> torch.Tensor:
     ``log10(E) + 6`` is one fused multiply-add, as XLA computes it (fma.py).
     ``torch.log`` and XLA:CPU's ``log`` differ on rare float32 inputs, so a
     bucket can differ by one near a bucket edge (tests/test_torch_lookup.py
-    states the bound)."""
+    states the bound).  A float64 energy (``precision="f64"``) is indexed
+    in float64 throughout, as JAX under ``jax_enable_x64`` does."""
+    if energy.dtype == torch.float64:
+        x = fma(elementary("log", energy), LOG10_E_F64, 6.0)
+        idx = torch.trunc(x * BUCKET_SCALE_F64)
+        idx = torch.where(torch.isnan(idx), torch.zeros_like(idx), idx)
+        return torch.clamp(idx, 0, N_STEPS - 1).to(torch.int32)
     x = fma_f32(torch.log(energy), float(LOG10_E), 6.0)
     idx = torch.trunc(x * torch.tensor(BUCKET_SCALE, device=energy.device))
     idx = torch.where(torch.isnan(idx), torch.zeros_like(idx), idx)

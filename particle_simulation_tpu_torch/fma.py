@@ -1,4 +1,5 @@
-"""A correctly rounded float32 fused multiply-add on torch tensors.
+"""Correctly rounded fused multiply-adds (float32 and float64) on torch
+tensors, and the elementary functions of the model.
 
 The JAX package's reference results come from XLA, which contracts some
 ``a*b + c`` expressions into one fused multiply-add: the product is not
@@ -46,10 +47,35 @@ emulated in float64: the product of two float32 values is exact in float64,
 an error-free TwoSum gives the exact residue of the add, and rounding that
 sum to odd before the final float64 -> float32 conversion removes the
 double-rounding error (float64 carries more than 24 + 2 bits).
+
+**float64** (``precision="f64"``, the oracle mode).  XLA:CPU contracts the
+float64 expressions at the same sites as the float32 ones: measured
+against JAX 0.9.0 under ``jax_enable_x64`` over 10^5 random lanes of the
+compiled mobility step of every model, the drift and the collision
+energy written as a plain multiply and add move results by an ulp and
+written fused move none (tests/test_torch_f64.py,
+``test_f64_contraction_sites``), and with every site fused the step is
+bitwise XLA's (``test_update_particles_f64_bitwise``), as are whole
+``naive`` and ``sync`` runs (``test_f64_run_equals_jax_x64``).  The
+float64 path therefore calls ``fma`` at the same sites, which for float64
+operands is ``fma_f64``: TwoProduct (Veltkamp's split) and TwoSum give
+the product and the add exactly, and their two residues are added rounded
+to odd before the one final round-to-nearest (Boldo and Melquiond,
+"Emulation of a FMA and correctly-rounded sums: proved algorithms using
+rounding to odd", IEEE TC 2008): correctly rounded for finite values away
+from the underflow range (an infinite operand gives the plain ``a*b +
+c``; ``test_fma_f64_correctly_rounded`` checks it against exact
+rationals).  The float64 ``sqrt``, ``cos``, ``sin`` and ``log``
+(``elementary``) are numpy's on a CPU tensor, whose ``sqrt``, ``cos`` and
+``sin`` equal XLA:CPU's on 10^5 random arguments
+(``test_elementary_f64_matches_xla``; torch's own CPU functions are
+vectorised approximations that are not correctly rounded), and torch's
+CUDA functions on the card, which are not held to XLA's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -84,3 +110,64 @@ def f32_of_f64(fn, x: torch.Tensor) -> torch.Tensor:
     """float32(fn(float64(x))): an elementary function of float32 values,
     correctly rounded (module docstring)."""
     return fn(x.to(torch.float64)).to(torch.float32)
+
+
+def _two_sum(a, b):
+    """(s, e) with s = round(a + b) and s + e == a + b exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a):
+    """Veltkamp's split: hi + lo == a, each half of 26 bits or fewer."""
+    c = a * 134217729.0  # 2^27 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _add_round_odd(a, b):
+    """a + b rounded to odd: an inexact sum with an even last bit moves
+    one ulp toward the exact value."""
+    s, e = _two_sum(a, b)
+    fix = (e != 0) & ((s.view(torch.int64) & 1) == 0) & torch.isfinite(s)
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(torch.float64)
+    return torch.where(fix, torch.nextafter(s, toward), s)
+
+
+def fma_f64(a, b, c) -> torch.Tensor:
+    """round_f64(a*b + c) with a single rounding; float64 tensors (or
+    Python floats) broadcast together (module docstring)."""
+    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+    a, b, c = (x if isinstance(x, torch.Tensor) else
+               torch.tensor(x, dtype=torch.float64, device=ref.device)
+               for x in (a, b, c))
+    uh = a * b
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl  # uh + ul == a*b
+    th, tl = _two_sum(c, uh)
+    r = th + _add_round_odd(tl, ul)
+    # an infinite operand or product: the residues are NaN, the plain
+    # result is the right one
+    return torch.where(torch.isfinite(uh) & torch.isfinite(c), r, uh + c)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """round(a*b + c) once, in the type of the tensor operands: ``fma_f64``
+    for float64, ``fma_f32`` otherwise."""
+    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+    if ref.dtype == torch.float64:
+        return fma_f64(a, b, c)
+    return fma_f32(a, b, c)
+
+
+def elementary(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The elementary function ``name`` (sqrt, cos, sin, log) of the model:
+    for float64 numpy's on a CPU tensor and torch's on the card, for
+    float32 ``f32_of_f64`` (module docstring)."""
+    if x.dtype != torch.float64:
+        return f32_of_f64(getattr(torch, name), x)
+    if x.device.type != "cpu":
+        return getattr(torch, name)(x)
+    with np.errstate(all="ignore"):
+        return torch.from_numpy(np.asarray(getattr(np, name)(x.numpy())))

@@ -20,19 +20,31 @@ from .state import SimState
 FIELDS = ("pos", "vel", "acc", "status", "id_hi", "id_lo", "n")
 
 
-def state_from_numpy(arrays: dict, device=None) -> SimState:
+def state_from_numpy(arrays: dict, device=None,
+                     dtype: torch.dtype = torch.float32) -> SimState:
     """A JAX SimState given as numpy arrays -> the port's state on
-    ``device`` (the card when None, device.resolve)."""
+    ``device`` (the card when None, device.resolve).
+
+    ``pos`` and ``vel`` are converted by value to ``dtype`` (float64 for
+    a ``precision="f64"`` config, ``config.float_dtype``), ``acc`` to
+    float32, as the JAX package's ``load_npz`` converts: a float64 array
+    from an f64 run loads rounded under float32 and exact under float64.
+    The uint32 ids are kept as int32 bit patterns."""
     device = resolve(device)
 
-    def t(name, dtype):
-        a = np.ascontiguousarray(np.asarray(arrays[name]))
-        return torch.from_numpy(a.view(dtype).copy()).to(device)
+    def floats(name, t):
+        a = np.ascontiguousarray(np.asarray(arrays[name]).astype(t))
+        return torch.from_numpy(a).to(device)
 
+    def words(name):
+        a = np.ascontiguousarray(np.asarray(arrays[name]))
+        return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+    fdt = np.float64 if dtype == torch.float64 else np.float32
     return SimState(
-        pos=t("pos", np.float32), vel=t("vel", np.float32),
-        acc=t("acc", np.float32), status=t("status", np.int32),
-        id_hi=t("id_hi", np.int32), id_lo=t("id_lo", np.int32),
+        pos=floats("pos", fdt), vel=floats("vel", fdt),
+        acc=floats("acc", np.float32), status=words("status"),
+        id_hi=words("id_hi"), id_lo=words("id_lo"),
         n=int(np.asarray(arrays["n"])),
     )
 
@@ -62,12 +74,13 @@ def table_from_numpy(table, device=None) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def shard_from_numpy(arrays: dict, rank: int, size: int,
-                     device=None) -> SimState:
+def shard_from_numpy(arrays: dict, rank: int, size: int, device=None,
+                     dtype: torch.dtype = torch.float32) -> SimState:
     """Rank ``rank``'s shard of a JAX sharded state given as numpy arrays
     (``parallel/sharded.setup_sharded``'s layout: the capacity axis in
     ``size`` equal blocks, ``n`` of shape (size,)) -> the port's state of
-    that rank on ``device`` (the card when None, device.resolve)."""
+    that rank on ``device`` (the card when None, device.resolve), its
+    floats converted as ``state_from_numpy`` converts them to ``dtype``."""
     n = np.asarray(arrays["n"]).reshape(-1)
     if n.shape != (size,):
         raise ValueError(f"n has shape {n.shape}, expected ({size},)")
@@ -75,4 +88,4 @@ def shard_from_numpy(arrays: dict, rank: int, size: int,
     block = {k: np.asarray(arrays[k])[rank * c:(rank + 1) * c]
              for k in FIELDS if k != "n"}
     block["n"] = n[rank]
-    return state_from_numpy(block, device)
+    return state_from_numpy(block, device, dtype)

@@ -16,7 +16,10 @@ integer diffs into one 10-bit-per-field int32 grid and gather it once per
 particle with ``kernels.field.packed_field_gather`` (the CUDA kernel on a
 CUDA tensor); when some |diff| exceeds 511 they gather (cells, 3) float32
 rows in plain torch instead.  Every path gives the same values,
-``float32(int diff) * float32(e_const)``.
+``float32(int diff) * float32(e_const)``.  Under ``precision="f64"`` the
+JAX package takes neither the subgrid nor the packed diffs: the full-grid
+deposit and ``gather_acceleration``, whose diff is widened to float64,
+multiplied by ``float64(e_const)`` and rounded once to float32.
 
 Deposits are int32 ``index_add_``: integer atomics are exact, so the counts
 do not depend on the order of the adds.  Each ``lax.cond`` of the JAX path
@@ -36,13 +39,14 @@ from .kernels.field import packed_field_gather
 class FieldCounts:
     """What the field phases took since the last ``reset``: ``subgrid``,
     ``window_fallback`` (the box did not fit the window), ``full``
-    (``bbox_subgrid=0``) and ``fft`` (``field_model="fft"``) per field
-    phase, ``slab`` per sharded field phase on x-slabs
+    (``bbox_subgrid=0``), ``fft`` (``field_model="fft"``) and ``f64``
+    (``precision="f64"``: the float64 gather) per field phase, ``slab``
+    per sharded field phase on x-slabs
     (``parallel.sharded``), ``rows_fallback`` per 10-bit
     misfit, ``readbacks`` per value read back to the host, ``last`` the
     path of the latest field phase."""
 
-    PATHS = ("subgrid", "window_fallback", "full", "fft", "slab")
+    PATHS = ("subgrid", "window_fallback", "full", "fft", "slab", "f64")
 
     def __init__(self):
         self.reset()
@@ -66,9 +70,11 @@ field_counts = FieldCounts()
 
 
 def cell_indices(pos: torch.Tensor, cell_size, grid_size) -> torch.Tensor:
-    """Integer cell coordinates trunc(pos / cell_size), clamped into the
-    grid; (N, 3) int32."""
-    inv = float(np.float32(1.0 / cell_size))
+    """Integer cell coordinates trunc(pos * (1 / cell_size)), the factor
+    rounded to the positions' type, clamped into the grid; (N, 3) int32."""
+    inv = 1.0 / cell_size
+    if pos.dtype != torch.float64:
+        inv = float(np.float32(inv))
     idx = (pos * inv).to(torch.int32)
     maxes = torch.tensor(grid_size, dtype=torch.int32, device=pos.device) - 1
     return torch.minimum(torch.clamp(idx, min=0), maxes)
@@ -110,13 +116,17 @@ def _int_diffs(charge_flat, grid_size):
 def gather_acceleration(charge_flat, pos, weight, cell_size, grid_size,
                         e_const) -> torch.Tensor:
     """(N, 3) float32 acceleration at each particle's cell, 0 where
-    ``weight`` is 0: the plain full-grid reference, three gathers."""
+    ``weight`` is 0: the full-grid reference, three gathers.  The diffs
+    are scaled in the positions' type: float32, or under ``precision=
+    "f64"`` float64 then rounded once to float32 (JAX grid.py
+    ``gather_acceleration``)."""
     diffs = _int_diffs(charge_flat, grid_size)
     idx = cell_indices(pos, cell_size, grid_size)
     flat = flatten_cells(idx[:, 0], idx[:, 1], idx[:, 2], grid_size).long()
-    e = torch.tensor(np.float32(e_const), device=pos.device)
-    acc = torch.stack([d.reshape(-1)[flat].to(torch.float32) * e
-                       for d in diffs], dim=1)
+    fdt = torch.float64 if pos.dtype == torch.float64 else torch.float32
+    e = torch.tensor(e_const, dtype=fdt, device=pos.device)
+    acc = torch.stack([d.reshape(-1)[flat].to(fdt) * e
+                       for d in diffs], dim=1).to(torch.float32)
     return torch.where(weight[:, None] > 0, acc, torch.zeros_like(acc))
 
 

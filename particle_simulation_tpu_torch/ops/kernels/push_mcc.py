@@ -59,14 +59,14 @@ from typing import NamedTuple
 import torch
 
 from ... import rng
-from ...config import SimConfig
+from ...config import SimConfig, f32_only
 from ...constants import STATUS_DEAD, STATUS_EMPTY
 from ...cross_section import BUCKET_SCALE, LOG10_E, N_STEPS
 from ...schedulers import pushes_info
 from ...state import SimState
 from .. import population
 from ..physics import (
-    Particles, f32, half_dt, model_args, rotation, update_particles,
+    Particles, half, model_args, rotation, scalar, update_particles,
 )
 from ..population import is_live
 
@@ -156,6 +156,13 @@ def stack_to_state(stack: torch.Tensor, n: int) -> SimState:
     )
 
 
+def check_f32(state: SimState, engine: str) -> None:
+    """Raise ValueError for a float64 state (``precision="f64"``), with
+    the JAX package's message, before any buffer or launch."""
+    if state.pos.dtype != torch.float32 or state.vel.dtype != torch.float32:
+        raise ValueError(f32_only(engine))
+
+
 def check_kernel_args(config: SimConfig, table: torch.Tensor, device):
     """Raise for what the compiled kernels do not take."""
     if not 1 <= config.spawn_depth <= MAX_DEPTH:
@@ -197,12 +204,12 @@ def phys_args(config: SimConfig, poisson_step: int, t_steps: int) -> tuple:
     bucket_scale, seed, poisson_step, t_steps, spawn_depth, rounds,
     block2, the model bits and the boris rotation's t and s (zeros without
     a field)."""
-    sx, sy, sz = (f32(s) for s in config.sim_size)
+    sx, sy, sz = (scalar(s) for s in config.sim_size)
     bits = model_bits(config)
     rot = (rotation(config.b_field, config.mobility_dt)
            if bits & MODEL_BITS["magnetized"] else ((0.0,) * 3,) * 2)
     return (
-        f32(config.mobility_dt), half_dt(config.mobility_dt), sx, sy, sz,
+        scalar(config.mobility_dt), half(config.mobility_dt), sx, sy, sz,
         float(LOG10_E), float(BUCKET_SCALE),
         config.seed & rng.MASK, poisson_step & rng.MASK, t_steps,
         config.spawn_depth, config.rng_rounds,
@@ -363,8 +370,7 @@ def staged_pass_plain(stack: torch.Tensor, n: int, table, config: SimConfig,
 
 
 def _staged_checks(state: SimState, t_steps: int) -> None:
-    if state.pos.dtype != torch.float32:
-        raise ValueError("the staged engine is float32-only")
+    check_f32(state, "staged")
     # suspended statuses pack (resume step, spawn stamp) into 15 bits each;
     # beyond that the encodings would alias and corrupt physics
     if t_steps + 2 >= (1 << _STAMP_BITS):
@@ -565,7 +571,8 @@ def mobility_phase_dynamic(state: SimState, poisson_step: int, table,
     """Work-list fixed point over staged passes; returns the compacted
     state and info (added, removed, overflow, reclaimed, passes, pushes_lo,
     pushes_hi).  A CPU state takes the plain version; a CUDA state
-    launches the kernel or raises."""
+    launches the kernel or raises.  A float64 state raises first."""
+    check_f32(state, "staged")
     if state.device.type == "cpu":
         return mobility_phase_dynamic_plain(
             state, poisson_step, table, config, t_steps

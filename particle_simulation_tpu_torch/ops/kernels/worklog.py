@@ -39,8 +39,8 @@ from ...schedulers import mobility_phase_naive, pushes_info
 from ...state import SimState
 from .. import population
 from .push_mcc import (
-    NF, check_buffers, check_kernel_args, empty_state, phys_args,
-    state_buffers,
+    NF, check_buffers, check_f32, check_kernel_args, empty_state,
+    phys_args, state_buffers,
 )
 
 # records a tile and threads a block of the phase kernel (-DPST_WORKLOG_TILE)
@@ -177,7 +177,9 @@ def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
 def mobility_phase_worklog(state: SimState, poisson_step: int, table,
                            config: SimConfig, t_steps: int):
     """Work-list fixed point with in-kernel emission; returns the compacted
-    state and info (added, removed, overflow, pushes_lo, pushes_hi)."""
+    state and info (added, removed, overflow, pushes_lo, pushes_hi).  A
+    float64 state raises first."""
+    check_f32(state, "work-log")
     if state.device.type == "cpu":
         return mobility_phase_worklog_plain(
             state, poisson_step, table, config, t_steps
@@ -198,6 +200,7 @@ def mobility_phase_worklog_plain(state: SimState, poisson_step: int, table,
     overflows only when the live population and a step's children exceed
     the capacity: dead rows are reclaimed mid-phase and counted back into
     added and removed."""
+    check_f32(state, "work-log")
     n_start = state.n_clamped
     st, info = mobility_phase_naive(state, poisson_step, table, config,
                                     t_steps, reclaim=True)

@@ -18,10 +18,18 @@ the velocity itself is ``(v - k) - k`` with ``k = a * (dt/2)`` rounded.
 The other models' sites are listed in fma.py; their ``sqrt``, ``cos`` and
 ``sin`` are correctly rounded (fma.f32_of_f64), where XLA:CPU's ``cos`` and
 ``sin`` are one ulp off on about 1.3% of arguments.
+
+Under ``precision="f64"`` the positions and velocities are float64 and the
+acceleration stays float32, widened where the kick reads it, as the JAX
+package computes under ``jax_enable_x64``: every constant is a float64
+(``scalar``), the contracted sites are the same (``fma.fma`` takes the
+float64 emulation) and the elementary functions are ``fma.elementary``'s.
+The collision draw stays float32 and is compared with the float32 table.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -30,7 +38,7 @@ import torch
 from .. import rng
 from ..constants import STATUS_DEAD, TWO_PI_F32
 from ..cross_section import table_lookup
-from ..fma import f32_of_f64, fma_f32
+from ..fma import elementary, fma
 
 
 class Particles(NamedTuple):
@@ -56,50 +64,61 @@ class StepResult(NamedTuple):
     child: Particles       # child fields (only valid where spawn)
 
 
-def f32(x) -> float:
-    """A Python float rounded to float32 (kept as a Python float)."""
-    return float(np.float32(x))
+def _np_type(dtype):
+    return np.float64 if dtype == torch.float64 else np.float32
 
 
-def half_dt(dt) -> float:
-    """float32(dt) / 2, the leapfrog half-kick factor (exact halving)."""
-    return float(np.float32(dt) / np.float32(2))
+def scalar(x, dtype=torch.float32) -> float:
+    """A Python float rounded to ``dtype`` (float32 or float64), kept as a
+    Python float."""
+    return float(_np_type(dtype)(x))
 
 
-def rotation(b_field, dt):
+def half(dt, dtype=torch.float32) -> float:
+    """dt / 2 in ``dtype`` (exact halving of the rounded dt), the leapfrog
+    half-kick factor."""
+    t = _np_type(dtype)
+    return float(t(dt) / t(2))
+
+
+def rotation(b_field, dt, dtype=torch.float32):
     """The boris rotation constants ``(t, s)`` (three floats each) for the
     signed cyclotron vector ``b_field`` (Omega = qB/m, rad/s), or None when
     the field is zero: ``t = Omega * dt/2`` and ``s = 2t / (1 + |t|^2)``,
-    one float32 operation at a time, as XLA folds the JAX package's
+    one ``dtype`` operation at a time, as XLA folds the JAX package's
     constants."""
     if b_field is None or not any(float(b) != 0.0 for b in b_field):
         return None
-    h = np.float32(dt) / np.float32(2)
-    t = [np.float32(b) * h for b in b_field]
+    f = _np_type(dtype)
+    h = f(dt) / f(2)
+    t = [f(b) * h for b in b_field]
     t2 = t[0] * t[0] + t[1] * t[1] + t[2] * t[2]
-    fac = np.float32(2.0) / (np.float32(1.0) + t2)
+    fac = f(2.0) / (f(1.0) + t2)
     return tuple(float(x) for x in t), tuple(float(x * fac) for x in t)
 
 
-def make_kick(integrator: str, acc, dt, b_field=None):
-    """The kick terms of the JAX package's ``make_kick``: a*dt/2 per axis
-    (leapfrog), a*dt (boris at B = 0), or the 9-tuple of boris with a
-    field: the half-kicks a*dt/2, then ``t`` and ``s`` (``rotation``)."""
-    rot = rotation(b_field, dt) if integrator == "boris" else None
+def make_kick(integrator: str, acc, dt, b_field=None, dtype=torch.float32):
+    """The kick terms of the JAX package's ``make_kick`` in ``dtype`` (the
+    float32 acceleration widened first): a*dt/2 per axis (leapfrog), a*dt
+    (boris at B = 0), or the 9-tuple of boris with a field: the half-kicks
+    a*dt/2, then ``t`` and ``s`` (``rotation``)."""
+    acc = tuple(a.to(dtype) for a in acc)
+    rot = rotation(b_field, dt, dtype) if integrator == "boris" else None
     if rot is not None:
-        h = half_dt(dt)
+        h = half(dt, dtype)
         return (*(a * h for a in acc), *rot[0], *rot[1])
-    scale = half_dt(dt) if integrator == "leapfrog" else f32(dt)
+    scale = half(dt, dtype) if integrator == "leapfrog" else scalar(dt, dtype)
     return tuple(a * scale for a in acc)
 
 
 def leapfrog(p: Particles, dt) -> Particles:
-    kx, ky, kz = make_kick("leapfrog", (p.ax, p.ay, p.az), dt)
-    dt32, h = f32(dt), half_dt(dt)
+    fdt = p.vx.dtype
+    kx, ky, kz = make_kick("leapfrog", (p.ax, p.ay, p.az), dt, dtype=fdt)
+    dtf, h = scalar(dt, fdt), half(dt, fdt)
     pos = []
     for x, v, a in ((p.px, p.vx, p.ax), (p.py, p.vy, p.ay),
                     (p.pz, p.vz, p.az)):
-        pos.append(fma_f32(fma_f32(-a, h, v), dt32, x))
+        pos.append(fma(fma(-a.to(fdt), h, v), dtf, x))
     return p._replace(
         px=pos[0], py=pos[1], pz=pos[2],
         vx=(p.vx - kx) - kx, vy=(p.vy - ky) - ky, vz=(p.vz - kz) - kz,
@@ -112,19 +131,20 @@ def boris(p: Particles, dt, b_field=None) -> Particles:
     a field it is ``v- = v - h``, ``v' = v- + v- x t``, ``v+ = v- + v' x
     s``, ``v = v+ - h`` with ``h = a*dt/2``.  The contraction follows XLA's
     per axis (fma.py lists the sites)."""
-    dt32 = f32(dt)
-    a = (p.ax, p.ay, p.az)
+    fdt = p.vx.dtype
+    dtf = scalar(dt, fdt)
+    a = tuple(x.to(fdt) for x in (p.ax, p.ay, p.az))
     v = (p.vx, p.vy, p.vz)
-    rot = rotation(b_field, dt)
+    rot = rotation(b_field, dt, fdt)
     if rot is None:
-        new_v = [fma_f32(-a[i], dt32, v[i]) for i in range(3)]
+        new_v = [fma(-a[i], dtf, v[i]) for i in range(3)]
     else:
         t, s = rot
-        h = half_dt(dt)
-        vm_fused = [fma_f32(-a[i], h, v[i]) for i in range(3)]
+        h = half(dt, fdt)
+        vm_fused = [fma(-a[i], h, v[i]) for i in range(3)]
 
         def cross(x, y, z, w):  # x*y - z*w, as XLA contracts it
-            return fma_f32(x, y, -(z * w))
+            return fma(x, y, -(z * w))
 
         new_v = []
         for i in range(3):
@@ -136,7 +156,7 @@ def boris(p: Particles, dt, b_field=None) -> Particles:
                                    vm[(c + 2) % 3], t[(c + 1) % 3])
                   for c in (j, k)}
             new_v.append((vm[i] + cross(v1[j], s[k], v1[k], s[j])) - kick)
-    pos = [fma_f32(new_v[i], dt32, x) for i, x in
+    pos = [fma(new_v[i], dtf, x) for i, x in
            enumerate((p.px, p.py, p.pz))]
     return p._replace(px=pos[0], py=pos[1], pz=pos[2],
                       vx=new_v[0], vy=new_v[1], vz=new_v[2])
@@ -146,15 +166,15 @@ def wrap_periodic(p: Particles, sim_size) -> Particles:
     """Positions wrapped into [0, size) per axis (boundary="periodic"):
     ``jnp.mod`` as XLA computes it (the exact ``fmod``, plus the size where
     the remainder is nonzero and its sign differs from the size's), then
-    clipped to ``nextafter(size, 0)``, the float32 edge where a tiny
-    negative value wraps to the size itself."""
+    clipped to ``nextafter(size, 0)`` in the positions' type, the edge
+    where a tiny negative value wraps to the size itself."""
 
     def wrap(x, size):
-        s32 = np.float32(size)
-        r = torch.fmod(x, float(s32))
-        r = torch.where((r != 0) & ((r < 0) != bool(s32 < 0)),
-                        r + float(s32), r)
-        return torch.clamp(r, 0.0, float(np.nextafter(s32, np.float32(0))))
+        f = _np_type(x.dtype)
+        s = f(size)
+        r = torch.fmod(x, float(s))
+        r = torch.where((r != 0) & ((r < 0) != bool(s < 0)), r + float(s), r)
+        return torch.clamp(r, 0.0, float(np.nextafter(s, f(0))))
 
     return p._replace(px=wrap(p.px, sim_size[0]), py=wrap(p.py, sim_size[1]),
                       pz=wrap(p.pz, sim_size[2]))
@@ -164,11 +184,11 @@ def out_of_bounds(p: Particles, sim_size) -> torch.Tensor:
     if sim_size[0] == sim_size[1] == sim_size[2]:
         # cubic domain: the min/max fold of the JAX package (same results
         # for finite coordinates)
-        s = f32(sim_size[0])
+        s = scalar(sim_size[0], p.px.dtype)
         m = torch.minimum(torch.minimum(p.px, p.py), p.pz)
         big = torch.maximum(torch.maximum(p.px, p.py), p.pz)
         return (m < 0) | (big >= s)
-    sx, sy, sz = (f32(s) for s in sim_size)
+    sx, sy, sz = (scalar(s, p.px.dtype) for s in sim_size)
     return (
         (p.px < 0) | (p.px >= sx)
         | (p.py < 0) | (p.py >= sy)
@@ -178,7 +198,7 @@ def out_of_bounds(p: Particles, sim_size) -> torch.Tensor:
 
 def collision_energy(p: Particles) -> torch.Tensor:
     """|v|^2 as XLA computes it: fma(vz, vz, fma(vx, vx, vy*vy))."""
-    return fma_f32(p.vz, p.vz, fma_f32(p.vx, p.vx, p.vy * p.vy))
+    return fma(p.vz, p.vz, fma(p.vx, p.vx, p.vy * p.vy))
 
 
 def update_particles(
@@ -200,8 +220,8 @@ def update_particles(
     """One mobility step for every lane; inactive lanes pass through.
 
     ``table`` is the (N_STEPS, 2) chance table, read at
-    ``energy_to_index(|v|^2)`` and compared in float32 as
-    ``u < split`` and ``u < split + remove``.  The model selections are the
+    ``energy_to_index(|v|^2)`` (in the velocities' type) and compared in
+    float32 as ``u < split`` and ``u < split + remove``.  The model selections are the
     JAX package's: ``integrator`` leapfrog or boris (with ``b_field``, the
     cyclotron vector), ``boundary`` absorb (out of bounds kills before the
     roll) or periodic (positions wrap, nothing leaves), ``collision_model``
@@ -240,14 +260,16 @@ def update_particles(
         child_v = (moved.vx, moved.vy, moved.vz)
         flip = splits
     elif collision_model == "isotropic":
-        cos_t = 2.0 * rng.uniform_from_bits(child_hi) - 1.0
-        sin_t = f32_of_f64(torch.sqrt, torch.clamp(
-            fma_f32(-cos_t, cos_t, 1.0), min=0.0))
-        phi = TWO_PI_F32 * rng.uniform_from_bits(child_lo)
-        speed = f32_of_f64(torch.sqrt, collision_energy(moved))
+        fdt = moved.vx.dtype
+        two_pi = TWO_PI_F32 if fdt == torch.float32 else 2.0 * math.pi
+        cos_t = 2.0 * rng.uniform_from_bits(child_hi).to(fdt) - 1.0
+        sin_t = elementary("sqrt", torch.clamp(
+            fma(-cos_t, cos_t, 1.0), min=0.0))
+        phi = two_pi * rng.uniform_from_bits(child_lo).to(fdt)
+        speed = elementary("sqrt", collision_energy(moved))
         across = speed * sin_t
-        child_v = (across * f32_of_f64(torch.cos, phi),
-                   across * f32_of_f64(torch.sin, phi), speed * cos_t)
+        child_v = (across * elementary("cos", phi),
+                   across * elementary("sin", phi), speed * cos_t)
         flip = torch.zeros_like(splits)
     else:
         raise ValueError(f"unknown collision model {collision_model!r}")

@@ -49,7 +49,9 @@ def grid_phase(state: SimState, config: SimConfig) -> SimState:
     neighbour model the bbox subgrid when ``bbox_subgrid`` is set (with
     its full-grid fallback), else the full grid, both gathering the packed
     diffs; under ``field_model="fft"`` the full-grid deposit and the
-    spectral solve (models/poisson_fft.py).  ``grid_ops.field_counts``
+    spectral solve (models/poisson_fft.py); else, under ``precision=
+    "f64"``, the full-grid deposit and the float64 gather
+    (``grid_ops.gather_acceleration``).  ``grid_ops.field_counts``
     records the path taken and the readbacks (at most two a phase)."""
     m = state.n_clamped
     pos = state.pos[:m]
@@ -67,6 +69,12 @@ def grid_phase(state: SimState, config: SimConfig) -> SimState:
                                   config.grid_size)
         a = gather_acceleration_fft(charge, pos, weight, config.cell_size,
                                     config.grid_size)
+    elif pos.dtype == torch.float64:
+        grid_ops.field_counts.note("f64")
+        charge = grid_ops.deposit(pos, weight, config.cell_size,
+                                  config.grid_size)
+        a = grid_ops.gather_acceleration(charge, pos, weight, config.cell_size,
+                                         config.grid_size, e)
     else:
         grid_ops.field_counts.note("full")
         charge = grid_ops.deposit(pos, weight, config.cell_size,

@@ -261,13 +261,19 @@ def use_slab(config: SimConfig, n_ranks: int) -> bool:
 
 def _replicated_field(pos, weight, config: SimConfig, mesh: Mesh, path: str):
     """The full-grid deposit summed over the ranks, then the configured
-    field model at this rank's particles."""
+    field model at this rank's particles, in the JAX package's order
+    (``field_acceleration``): the FFT model, the float64 gather under
+    ``precision="f64"``, else the packed diffs."""
     grid_ops.field_counts.note(path)
     charge = grid_ops.deposit(pos, weight, config.cell_size, config.grid_size)
     mesh.all_reduce(charge, tag="charge")
     if config.field_model == "fft":
         return gather_acceleration_fft(charge, pos, weight, config.cell_size,
                                        config.grid_size)
+    if pos.dtype == torch.float64:
+        return grid_ops.gather_acceleration(
+            charge, pos, weight, config.cell_size, config.grid_size,
+            config.electric_force_constant)
     return grid_ops.gather_acceleration_packdiff(
         charge, pos, weight, config.cell_size, config.grid_size,
         config.electric_force_constant)
@@ -300,12 +306,14 @@ def sharded_grid_phase(state: SimState, config: SimConfig, mesh: Mesh,
                        slab: bool) -> SimState:
     """The field phase over every rank's particles; stores this rank's
     frozen acceleration.  ``grid_ops.field_counts`` records the path:
-    ``full`` or ``fft`` (replicated), ``slab``, or ``window_fallback``."""
+    ``full``, ``fft`` or ``f64`` (replicated), ``slab``, or
+    ``window_fallback``."""
     m = state.n_clamped
     pos = state.pos[:m]
     weight = population.is_live(state.status[:m]).to(torch.int32)
     a = None
-    path = "fft" if config.field_model == "fft" else "full"
+    path = ("fft" if config.field_model == "fft" else
+            "f64" if pos.dtype == torch.float64 else "full")
     if slab:
         idx = grid_ops.cell_indices(pos, config.cell_size, config.grid_size)
         lo, hi = grid_ops.live_bbox(idx, weight, config.grid_size)
@@ -446,7 +454,8 @@ def gather_live(state: SimState, mesh: Mesh) -> Optional[dict]:
     return {k: np.concatenate([p[k] for p in parts]) for k in rows}
 
 
-def _kernel_counters():
+def kernel_counters():
+    """The launch counters of the kernels a rank can reach, by name."""
     from ..ops.kernels.field import packed_field_gather
     from ..ops.kernels.push_mcc import staged_phase
     from ..ops.kernels.worklog import worklog_phase
@@ -465,7 +474,7 @@ def run_scenarios(mesh: Mesh, scenarios: List[dict]) -> List[dict]:
     collective stats, and on rank 0 the live rows; and the modules of JAX
     this process has loaded (none, by the port's contract)."""
     out = []
-    kernels = _kernel_counters()
+    kernels = kernel_counters()
     for sc in scenarios:
         config = sc["config"]
         for k in kernels.values():

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import cross_section
-from .config import SimConfig
+from .config import SimConfig, float_dtype
 from .ops.step import poisson_step
 from .state import SimState, setup_particles
 
@@ -83,8 +83,15 @@ def run_pic(
     ``device`` places the table and the initial state that this call
     makes: the given state's device when None and a state is given, else
     the card (device.resolve).  A given table or state keeps its own
-    device."""
+    device; a given state's floats must be of the config's type
+    (``float_dtype``: ``checkpoint.load_npz`` and
+    ``interop.state_from_numpy`` convert)."""
     del auto_bucket
+    if initial_state is not None and (
+            initial_state.pos.dtype != float_dtype(config)):
+        raise ValueError(
+            f"initial_state holds {initial_state.pos.dtype}, but "
+            f"precision={config.precision!r} runs {float_dtype(config)}")
     if device is None and initial_state is not None:
         device = initial_state.device
     if print_header:

@@ -1,7 +1,9 @@
 """Simulation state: fixed-capacity structure-of-arrays particle storage
 (counterpart of ``particle_simulation_tpu/state.py``).
 
-The fields are those of the JAX ``SimState``.  Two differences of
+The fields are those of the JAX ``SimState``; ``pos`` and ``vel`` are
+float64 under ``precision="f64"`` (``config.float_dtype``) and ``acc`` is
+float32 either way.  Two differences of
 representation: the genealogy ids are stored as int32 bit patterns (torch
 has no usable uint32 on the CPU; rng.py explains), and ``n`` is a Python
 int, since the host reads the population after every Poisson step anyway.
@@ -15,14 +17,14 @@ import numpy as np
 import torch
 
 from . import rng
-from .config import SimConfig
+from .config import SimConfig, float_dtype
 from .constants import STATUS_ALIVE, STATUS_EMPTY
 from .device import resolve
 
 
 class SimState(NamedTuple):
-    pos: torch.Tensor     # (C, 3) f32 — metres
-    vel: torch.Tensor     # (C, 3) f32 — m/s
+    pos: torch.Tensor     # (C, 3) f32/f64 — metres
+    vel: torch.Tensor     # (C, 3) f32/f64 — m/s
     acc: torch.Tensor     # (C, 3) f32 — m/s^2, frozen during a Poisson step
     status: torch.Tensor  # (C,) i32 — constants.py status protocol
     id_hi: torch.Tensor   # (C,) i32 bit pattern of the u32 id word
@@ -46,9 +48,10 @@ def zero_state(config: SimConfig, device=None) -> SimState:
     """An empty state on ``device`` (the card when None, device.resolve)."""
     device = resolve(device)
     c = config.capacity
+    fdt = float_dtype(config)
     return SimState(
-        pos=torch.zeros((c, 3), dtype=torch.float32, device=device),
-        vel=torch.zeros((c, 3), dtype=torch.float32, device=device),
+        pos=torch.zeros((c, 3), dtype=fdt, device=device),
+        vel=torch.zeros((c, 3), dtype=fdt, device=device),
         acc=torch.zeros((c, 3), dtype=torch.float32, device=device),
         status=torch.full((c,), STATUS_EMPTY, dtype=torch.int32, device=device),
         id_hi=torch.zeros((c,), dtype=torch.int32, device=device),
@@ -62,7 +65,9 @@ def setup_particles(config: SimConfig, slot_offset: int = 0,
     """Seed ``init_n`` electrons uniformly in the 62-cell cube at the domain
     centre (reference src/particle_move.cu:7-19), with zero velocity, or
     with ``init_vth * N(0, 1)`` per component when ``config.init_vth`` is
-    set (the JAX package's thermal start, rng.setup_gaussian).
+    set (the JAX package's thermal start, rng.setup_gaussian).  The draws
+    are float32; under ``precision="f64"`` they are widened exactly and
+    ``init_vth`` multiplies in float64, as in the JAX package.
 
     ``slot_offset`` shifts the global particle index that keys the ids, as
     the JAX package's sharded setup uses it.  ``device`` is the card when
@@ -71,6 +76,7 @@ def setup_particles(config: SimConfig, slot_offset: int = 0,
     if init_n > c:
         raise ValueError(f"init_n {init_n} exceeds capacity {c}")
     device = resolve(device)
+    fdt = float_dtype(config)
     st = zero_state(config, device)
     slots = (torch.arange(c, dtype=torch.int64, device=device) + slot_offset)
     id_hi, id_lo = rng.initial_ids(config.seed, slots & rng.MASK)
@@ -81,15 +87,16 @@ def setup_particles(config: SimConfig, slot_offset: int = 0,
         # clamp the spawn box to the domain for grids below 62 cells
         lo = max(0, g // 2 - 30) * config.cell_size
         hi = min(g, g // 2 + 32) * config.cell_size
-        axes.append(rng.setup_uniform(id_hi, id_lo, ax, lo, hi))
+        axes.append(rng.setup_uniform(id_hi, id_lo, ax, lo, hi).to(fdt))
     pos = torch.stack(axes, dim=1)
 
     active = torch.arange(c, device=device) < init_n
     zero = torch.zeros((), dtype=torch.int32, device=device)
     vel = st.vel
     if config.init_vth:
-        vth = float(np.float32(config.init_vth))
-        vel = torch.stack([vth * rng.setup_gaussian(id_hi, id_lo, ax)
+        vth = (float(config.init_vth) if fdt == torch.float64
+               else float(np.float32(config.init_vth)))
+        vel = torch.stack([vth * rng.setup_gaussian(id_hi, id_lo, ax).to(fdt)
                            for ax in range(3)], dim=1)
         vel = torch.where(active[:, None], vel, torch.zeros_like(vel))
     return st._replace(

@@ -18,10 +18,13 @@ from .runtime import run_pic, sorted_particle_array
 
 
 def run_unit_test(config: SimConfig, schedulers=None, device=None) -> bool:
-    """``device``: where the runs go (the card when None)."""
+    """``device``: where the runs go (the card when None).  Under
+    ``precision="f64"`` the default cadences are the plain ones, ``sync``
+    and ``naive``: the engines run float32 only."""
     base_scheduler = "sync"  # the reference's base_function = 1 (CPU Sync)
     if schedulers is None:
-        schedulers = ["dynamic", "sync", "dynamic_old", "naive"]
+        schedulers = (["sync", "naive"] if config.precision == "f64" else
+                      ["dynamic", "sync", "dynamic_old", "naive"])
 
     base = run_pic(config.replace(scheduler=base_scheduler),
                    print_header=False, device=device)

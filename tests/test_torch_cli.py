@@ -5,9 +5,10 @@ times masked and its PNGs' pixels; the four scheduler modes agreeing on
 the final state through their npz checkpoints; ``bench`` writing the port's
 own CSV; and ``test`` as a subprocess.  What only the port has: the
 ``platform=`` device, ``mesh=N`` parsed, ``bucket=`` without effect, and
-the model values it does not run (``precision=f64``, unknown names)
-refused through ``config.check_supported``; the model menu's knobs run
-and print what the JAX CLI prints."""
+the model values it does not run (unknown names, ``precision=f64`` on the
+engines' modes 30 and 33) refused through ``config.check_supported``; the
+model menu's knobs run and print what the JAX CLI prints; ``precision=f64``
+in mode 31 equal to ``run_pic``."""
 
 import dataclasses
 import os
@@ -16,6 +17,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import particle_simulation_tpu_torch
 from particle_simulation_tpu import cli as jcli
@@ -209,3 +211,33 @@ def test_module_runs_the_test_mode(tmp_path):
     lines = res.stdout.splitlines()
     assert sum(": success (" in l for l in lines) == 4
     assert lines[-1].startswith("CPU time of program: ")
+
+
+def test_precision_f64_mode_31_equals_run_pic(tmp_path, monkeypatch):
+    """Mode 31 (``sync``) with ``precision=f64``: exit 0 and the final
+    float64 state of ``run_pic`` on the same config, through its npz
+    checkpoint; the engines' modes exit with their message, as the JAX
+    CLI's engines raise it."""
+    from particle_simulation_tpu_torch import SimConfig
+    from particle_simulation_tpu_torch.runtime import run_pic
+
+    monkeypatch.chdir(tmp_path)
+    d = str(tmp_path / "ck")
+    code, out = printed(cli.main, ["31", *RUN, "precision=f64",
+                                   "platform=cpu", f"ckpt={d}"])
+    assert code == 0 and "CPU time of program" in out
+    state, step = checkpoint.load_npz(os.path.join(d, "step_000002.npz"),
+                                      "cpu", dtype=torch.float64)
+    cfg = SimConfig(init_n=150, capacity=20000, poisson_steps=2,
+                    poisson_timestep=6, grid_size=(32, 32, 32),
+                    cross_section_path=CONST, scheduler="sync",
+                    precision="f64")
+    ref = run_pic(cfg, print_header=False, device="cpu")
+    assert step == 2 and state.pos.dtype == torch.float64
+    assert state.n == ref.final_n and ref.steps[-1].added > 0
+    np.testing.assert_array_equal(multiset_with_ids(state),
+                                  multiset_with_ids(ref.state))
+    for mode, engine in (("30", "work-log"), ("33", "staged")):
+        with pytest.raises(SystemExit, match=f"the fused {engine} engine is "
+                           "f32-only; use scheduler='sync' or 'naive'"):
+            cli.main([mode, *RUN, "precision=f64", "platform=cpu"])

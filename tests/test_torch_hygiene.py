@@ -1,6 +1,7 @@
 """The port imports neither jax nor the JAX package, at import time or
 anywhere in its sources (the test process itself has jax loaded through
-conftest.py, so the import check runs in a fresh interpreter)."""
+conftest.py, so the import check runs in a fresh interpreter), and every
+module imports without pandas, matplotlib or PIL."""
 
 import os
 import re
@@ -58,7 +59,15 @@ MODULES = [
     "particle_simulation_tpu_torch.probes.step_times",
     "particle_simulation_tpu_torch.probes.sweep_sensitivity",
     "particle_simulation_tpu_torch.probes.worklog_phase",
+    "particle_simulation_tpu_torch.probes.weak_scaling",
 ]
+ANALYSE = [
+    f"particle_simulation_tpu_torch.analyse.{m}" for m in (
+        "common", "plot_all", "plot_cc", "plot_init_n", "plot_mobility",
+        "plot_particles_added", "plot_poisson_steps", "plot_tile",
+        "plot_validation", "to_gif", "analyse_random")
+]
+MODULES += ["particle_simulation_tpu_torch.analyse", *ANALYSE]
 
 
 def test_import_leaves_jax_out():
@@ -70,6 +79,23 @@ def test_import_leaves_jax_out():
         "m.startswith('jax.') or m == 'particle_simulation_tpu' or "
         "m.startswith('particle_simulation_tpu.'))\n"
         "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_import_without_pandas_or_matplotlib():
+    """Every module imports where pandas, matplotlib and PIL are missing,
+    as on the card's machine (the analysis scripts import them inside
+    their functions)."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('pandas', 'matplotlib', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

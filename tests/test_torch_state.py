@@ -69,10 +69,13 @@ def test_setup_rejects_bad_configs():
     "knob",
     [dict(integrator="rk4"), dict(collision_model="elastic"),
      dict(boundary="reflect"), dict(field_model="multigrid"),
-     dict(precision="f64"), dict(init_vth=float("nan")),
+     dict(precision="f16"), dict(init_vth=float("nan")),
      dict(b_field=(0.0, 0.0, float("inf"))),
      dict(rng_mode="other"), dict(spawn_depth=0),
-     dict(scheduler="dynamic", poisson_timestep=40000)],
+     dict(scheduler="dynamic", poisson_timestep=40000),
+     # the engines run float32 only (the JAX package's refusal)
+     dict(precision="f64", scheduler="dynamic"),
+     dict(precision="f64", scheduler="dynamic_old")],
 )
 def test_unported_model_knobs_raise(knob):
     with pytest.raises(ValueError):
@@ -85,7 +88,9 @@ def test_unported_model_knobs_raise(knob):
      dict(boundary="periodic"), dict(field_model="fft"),
      dict(init_vth=1e5), dict(b_field=(0.0, 0.0, 1.0)),
      dict(integrator="boris", b_field=(0.0, 0.0, -1.76e9),
-          collision_model="isotropic", boundary="periodic", init_vth=2e6)],
+          collision_model="isotropic", boundary="periodic", init_vth=2e6),
+     # the float64 oracle mode on the plain schedulers
+     dict(precision="f64"), dict(precision="f64", scheduler="sync")],
 )
 def test_ported_model_knobs_are_accepted(knob):
     check_supported(SimConfig(**knob))

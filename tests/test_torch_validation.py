@@ -26,6 +26,9 @@ import pytest
 import torch
 
 from particle_simulation_tpu_torch import SimConfig
+from particle_simulation_tpu_torch.analyse.plot_validation import (
+    branching_moments,
+)
 from particle_simulation_tpu_torch.cross_section import (
     N_STEPS, bundled_paths, load_table, write_table,
 )
@@ -39,22 +42,6 @@ MODELS = {
                        collision_model="isotropic", boundary="periodic",
                        init_vth=2.0e6),
 }
-
-
-def branching_moments(n0, split_pct, remove_pct, n_steps):
-    """Analytic (mean, variance) of the population after ``n_steps``
-    mobility steps of the constant-table branching process: offspring 2
-    with p_s, 0 with p_r, 1 otherwise; m = 1 + p_s - p_r and
-    sigma^2 = 4 p_s + (1 - p_s - p_r) - m^2."""
-    p_s, p_r = split_pct / 100.0, remove_pct / 100.0
-    m = 1.0 + p_s - p_r
-    var1 = 4.0 * p_s + (1.0 - p_s - p_r) - m * m
-    mean = n0 * m**n_steps
-    if abs(m - 1.0) < 1e-12:
-        var = var1 * n_steps * n0
-    else:
-        var = var1 * m ** (n_steps - 1) * (m**n_steps - 1.0) / (m - 1.0) * n0
-    return mean, var
 
 
 @pytest.mark.parametrize("model", list(MODELS))
