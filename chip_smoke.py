@@ -72,9 +72,11 @@ Phases, each printing one line or a few:
        lines, and ``dynamic`` equal to ``dynamic_old`` (multiset with ids,
        per-step counters);
    (b) ``python -m particle_simulation_tpu_torch`` modes 30 and 33 as
-       subprocesses with npz checkpoints: the PNGs and checkpoints at the
-       expected steps, every PNG decoded, ``checkpoint.resume_run`` from
-       step 2 equal to the uninterrupted run, mode 33 equal to mode 30;
+       subprocesses with npz checkpoints (the module run by ``runpy`` in
+       a child that prints the IO library's call counts as it exits): the
+       PNGs and checkpoints at the expected steps, every PNG decoded,
+       ``checkpoint.resume_run`` from step 2 equal to the uninterrupted
+       run, mode 33 equal to mode 30;
    (c) ``benchmarks.run_benchmark("full")`` for ``dynamic`` (T 10-1000)
        and ``dynamic_old`` (T <= 100) into a temporary CSV: the
        reference's header, each row's final n within 0.1% of the TPU's
@@ -150,6 +152,20 @@ Phases, each printing one line or a few:
        message;
    (e) ``probes/weak_scaling.py``: a row at each world size the cards
        allow (one card: world size 1 over NCCL, then its stop line).
+12. the native IO library (utils/fastio.py, csrc/fastio.c, built by the
+    host C compiler at its first use), its wall time bounded by
+    NATIVE_IO_BUDGET_S; host times are the median of IO_RUNS calls:
+   (a) the build's seconds, the compiler and the host CPU;
+   (b) both bundled tables parsed natively and by ``np.loadtxt``, bit for
+       bit equal, each one's host ms;
+   (c) the main path's initial state (1M electrons, 256^3, set up on the
+       card) rendered at 512^2 and encoded natively and in Python: the
+       decoded pixels equal, the bytes equal where the library's zlib is
+       Python's (both versions printed), each one's host ms;
+   (d) ``append_lines`` against its plain twin, byte for byte, host ms;
+   (e) 8b's call counts: each mode's table load and every PNG it wrote
+       went through the library.
+   Its results are the ``native_io`` line, before the kernels' line.
 
 Any failed check raises, so the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}; the line before it lists
@@ -158,7 +174,8 @@ version's and the library call's, and the bound: the least time the H100
 could take for the same work, from the bytes each input and output must
 move once (3.35 TB/s) and the operations these inputs need (67 TFLOP/s
 float32), whichever is larger (probes/common.py); the line before that
-repeats the card's name and power limit.  The two engines' lines
+is 12's ``native_io`` line, and the one before it repeats the card's name
+and power limit.  The two engines' lines
 add the slice of 9b: ``models_ms`` (the phase's mean over steps 1-3),
 ``models_launches``, ``models_passes`` and ``models_bound_ms``; the
 engines' and the field gather's lines add ``launches_sharded``, their
@@ -259,6 +276,22 @@ F64_MAIN = dict(MAIN, capacity=4_000_000, poisson_steps=2)
 F64_CHURN = dict(CHURN, capacity=1 << 20, poisson_steps=2, scheduler="naive")
 F64_CLI_ARGV = ["0", "2000", "2", "256", "65536", "0", "6", "grid=32"]
 F64_BUDGET_S = 150.0
+# 12: the native IO library; 8b runs the CLI as ``python -m
+# particle_simulation_tpu_torch`` does, in a child that prints the library's
+# call counts as it exits (``IO_CALLS``), which 12e reads
+NATIVE_IO_BUDGET_S = 30.0
+IO_RUNS = 20
+IO_CALLS = "io calls "
+CLI_COUNTING_IO = (
+    "import atexit, json, runpy, sys\n"
+    "from particle_simulation_tpu_torch.utils import fastio\n"
+    "atexit.register(lambda: print(" + repr(IO_CALLS) + " + json.dumps({\n"
+    "    f.__name__: f.calls for f in (fastio.parse_float_pairs,\n"
+    "                                  fastio.write_png,\n"
+    "                                  fastio.append_lines)}), flush=True))\n"
+    "runpy.run_module('particle_simulation_tpu_torch', run_name='__main__',\n"
+    "                 alter_sys=True)\n"
+)
 
 
 def log(msg: str) -> None:
@@ -295,7 +328,8 @@ def multiset_digest(state) -> tuple:
 
 def entry_points(dev, repo: str) -> dict:
     """Phase 8 (the module docstring): the entry points as a user calls
-    them.  Returns each kernel's launches over 8a-8c."""
+    them.  Returns each kernel's launches over 8a-8c and, under
+    "io_calls", the IO library's calls and the PNGs due in each mode of 8b."""
     import contextlib
     import hashlib
     import io
@@ -325,6 +359,7 @@ def entry_points(dev, repo: str) -> dict:
     kernels = {"worklog_phase": worklog_phase, "staged_phase": staged_phase,
                "field_gather": packed_field_gather}
     total = dict.fromkeys(kernels, 0)
+    total["io_calls"] = {}  # 8b: the IO library's calls in each mode
 
     def counted(tag, needed, fn):
         """``fn()`` with the launch counts at 0 before it, read after it;
@@ -414,9 +449,10 @@ def entry_points(dev, repo: str) -> dict:
             argv = [mode, str(verbose), *CLI_ARGV[2:],
                     f"ckpt={os.path.join(cwd, 'ckpt')}"]
             log(f"  8b: python -m particle_simulation_tpu_torch "
-                f"{' '.join(argv)}")
+                f"{' '.join(argv)} (by runpy, counting the IO library's "
+                "calls)")
             procs[mode] = subprocess.Popen(
-                [sys.executable, "-m", "particle_simulation_tpu_torch", *argv],
+                [sys.executable, "-c", CLI_COUNTING_IO, *argv],
                 cwd=cwd, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
         for mode, proc in procs.items():
@@ -425,6 +461,12 @@ def entry_points(dev, repo: str) -> dict:
                 log(f"  8b {mode} | {line}")
             check(proc.returncode == 0,
                   f"8b: mode {mode} exited {proc.returncode}")
+            counts = [line for line in text.splitlines()
+                      if line.startswith(IO_CALLS)]
+            check(len(counts) == 1, f"8b: mode {mode} printed no IO counts")
+            total["io_calls"][mode] = {
+                "calls": json.loads(counts[0][len(IO_CALLS):]),
+                "pngs": len(range(0, steps + 1, cadence[mode]))}
         for mode, verbose in cadence.items():
             want = list(range(0, steps + 1, verbose))
             ckpt = os.path.join(tmp, mode, "ckpt")
@@ -1230,6 +1272,149 @@ def f64_on_card(dev, repo: str) -> dict:
     return out
 
 
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (model name, vendor, family
+    and model numbers) and its cores."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = " ".join(fields.get(k, "?") for k in ("model name", "vendor_id"))
+    return (f"{name} family {fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')} x {os.cpu_count()} cores")
+
+
+def native_io_on_card(dev, io_calls: dict) -> dict:
+    """Phase 12 (the module docstring): the port's IO library against its
+    plain twins, host times on the card's machine.  Returns the
+    ``native_io`` line's object."""
+    import shutil
+    import statistics
+    import subprocess
+    import tempfile
+    import zlib
+
+    import numpy as np
+
+    from particle_simulation_tpu_torch import SimConfig, cross_section
+    from particle_simulation_tpu_torch.observability import (
+        CSV_HEADER, read_png, render_particles,
+    )
+    from particle_simulation_tpu_torch.state import setup_particles
+    from particle_simulation_tpu_torch.utils import fastio
+
+    t_phase = time.perf_counter()
+
+    def host_ms(fn, *args):
+        """The median of IO_RUNS calls' host times (ms)."""
+        times = []
+        for _ in range(IO_RUNS):
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    # ---- 12a. the build ----
+    lib = fastio.load()
+    cc_version = subprocess.run([lib.compiler, "--version"],
+                                capture_output=True, text=True
+                                ).stdout.splitlines()[0]
+    out = {"build_s": lib.build_seconds, "compiler": lib.compiler,
+           "compiler_version": cc_version, "cpu": host_cpu(),
+           "zlib_library": lib.zlib_version(),
+           "zlib_python": zlib.ZLIB_RUNTIME_VERSION}
+    log(f"12a: {os.path.relpath(lib.path)} built by {lib.compiler} "
+        f"({cc_version}) in {lib.build_seconds:.3f} s at its first use; "
+        f"host CPU {out['cpu']}")
+
+    # ---- 12b. the bundled tables ----
+    n = cross_section.N_STEPS
+    for path in cross_section.bundled_paths():
+        name = os.path.basename(path)
+        native = fastio.parse_float_pairs(path, n)
+        plain = fastio.parse_float_pairs_plain(path, n)
+        check(np.array_equal(native.view(np.uint64), plain.view(np.uint64)),
+              f"12b: {name} parsed natively differs from np.loadtxt")
+        ms, plain_ms = (host_ms(fn, path, n) for fn in (
+            fastio.parse_float_pairs, fastio.parse_float_pairs_plain))
+        out[f"parse_{name}"] = {"ms": ms, "plain_ms": plain_ms}
+        log(f"12b: {name} ({n} rows) equal to np.loadtxt bit for bit; host "
+            f"median of {IO_RUNS}: native {ms:.4f} ms, plain {plain_ms:.4f} "
+            "ms")
+
+    tmp = tempfile.mkdtemp(prefix="pst_native_io_")
+    try:
+        # ---- 12c. the main path's initial state as a PNG ----
+        cfg = SimConfig(**MAIN)
+        st = setup_particles(cfg, device=dev)
+        img = render_particles(st.pos[:st.n].cpu().numpy(), cfg.sim_size)
+        del st
+        a, b = os.path.join(tmp, "native.png"), os.path.join(tmp, "plain.png")
+        fastio.write_png(a, img)
+        fastio.write_png_plain(b, img)
+        for path in (a, b):
+            check(np.array_equal(read_png(path), img),
+                  f"12c: {os.path.basename(path)} decodes to other pixels")
+        with open(a, "rb") as f, open(b, "rb") as g:
+            same_bytes = f.read() == g.read()
+        if out["zlib_library"] == out["zlib_python"]:
+            check(same_bytes, "12c: the PNGs' bytes differ under one zlib")
+        ms, plain_ms = (host_ms(fn, a, img) for fn in (
+            fastio.write_png, fastio.write_png_plain))
+        out["png"] = {"ms": ms, "plain_ms": plain_ms,
+                      "bytes": os.path.getsize(a), "same_bytes": same_bytes}
+        log(f"12c: the main path's initial state ({cfg.init_n} electrons, "
+            f"{img.shape[1]}x{img.shape[0]}) encoded natively and in Python: "
+            f"pixels equal, bytes equal {same_bytes} (zlib of the library "
+            f"{out['zlib_library']}, of Python {out['zlib_python']}), "
+            f"{out['png']['bytes']} bytes; host median of {IO_RUNS}: native "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+        # ---- 12d. the CSV appender ----
+        lines = [CSV_HEADER] + [
+            f"dynamic,{cfg.init_n},{t},{t},256,0,0,{cfg.init_n + 7 * t},"
+            f"{t / 3}" for t in range(1000)]
+        a, b = os.path.join(tmp, "native.csv"), os.path.join(tmp, "plain.csv")
+        for path in (a, b):
+            with open(path, "w") as f:
+                f.write("existing\n")
+        fastio.append_lines(a, lines)
+        fastio.append_lines_plain(b, lines)
+        with open(a, "rb") as f, open(b, "rb") as g:
+            check(f.read() == g.read(), "12d: the appended files differ")
+        ms, plain_ms = (host_ms(fn, a, lines) for fn in (
+            fastio.append_lines, fastio.append_lines_plain))
+        out["append_lines"] = {"ms": ms, "plain_ms": plain_ms,
+                               "lines": len(lines)}
+        log(f"12d: {len(lines)} lines appended natively and in Python: "
+            f"equal byte for byte; host median of {IO_RUNS}: native "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 12e. the entry points' calls in 8b ----
+    for mode, seen in io_calls.items():
+        calls = seen["calls"]
+        check(calls["parse_float_pairs"] == 1 and calls["write_png"]
+              == seen["pngs"],
+              f"12e: mode {mode} called the IO library {calls}, "
+              f"{seen['pngs']} PNGs due")
+        log(f"12e: mode {mode}'s table load and {seen['pngs']} PNGs went "
+            f"through the IO library: {calls}")
+    check(set(io_calls) == {CLI_ARGV[0], "33"},
+          f"12e: IO counts of modes {sorted(io_calls)}")
+    out["entry_point_calls"] = {m: v["calls"] for m, v in io_calls.items()}
+    seconds = time.perf_counter() - t_phase
+    check(seconds < NATIVE_IO_BUDGET_S,
+          f"12: {seconds:.1f} s, over its bound of {NATIVE_IO_BUDGET_S} s")
+    log(f"12: native IO done in {seconds:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1842,7 +2027,11 @@ def main() -> int:
     # ---- 11. the f64 oracle mode, its checkpoints, the weak-scaling probe
     oracle = f64_on_card(dev, os.path.dirname(os.path.abspath(__file__)))
 
+    # ---- 12. the native IO library ----
+    native_io = native_io_on_card(dev, entry["io_calls"])
+
     log(card())  # again here, so the end of the output names the card
+    log(json.dumps({"native_io": native_io}))
     log(json.dumps({"kernels": [{
         "name": "worklog_phase",
         "route": "cuda",

@@ -6,7 +6,7 @@ The reference has none (SURVEY.md §5.4).  A snapshot is one npz file,
 JAX package's types (``interop.state_to_numpy``: ids as uint32, ``n`` as a
 0-d array) and the Poisson step it was taken at, so a checkpoint written by
 either package resumes in the other.  The JAX package's orbax backend is
-not ported.
+not ported: ``make_checkpoint_hook(..., backend="orbax")`` raises.
 """
 
 from __future__ import annotations
@@ -56,10 +56,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def make_checkpoint_hook(config: SimConfig, ckpt_dir: str):
+def make_checkpoint_hook(config: SimConfig, ckpt_dir: str,
+                         backend: str = "npz"):
     """An ``on_step`` hook for run_pic that saves every state it is given,
-    on the verbose cadence like the reference's log()."""
+    on the verbose cadence like the reference's log().
+
+    ``backend`` is the JAX package's argument: "npz" writes
+    ``step_NNNNNN.npz``; any other, "orbax" among them, raises ValueError."""
     del config
+    if backend != "npz":
+        raise ValueError(
+            f"checkpoint backend {backend!r}: the port writes npz only; orbax "
+            "is a JAX library that the port does not carry, and npz "
+            "checkpoints resume in either package")
 
     def on_step(t, state):
         save_npz(_npz_path(ckpt_dir, t), state, t)

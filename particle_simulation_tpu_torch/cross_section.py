@@ -19,6 +19,7 @@ import torch
 
 from .device import resolve
 from .fma import elementary, fma, fma_f32
+from .utils import fastio
 
 N_STEPS = 10000
 
@@ -97,20 +98,15 @@ def argon_like_table(gas_density: float = 1e20, dt: float = 1e-9,
 
 def load_table(path: str = "", device=None) -> torch.Tensor:
     """Load (split_chance, remove_chance) pairs -> (N_STEPS, 2) float32 on
-    ``device`` (the card when None, device.resolve).
+    ``device`` (the card when None, device.resolve), parsed by the port's
+    IO library (``utils/fastio.py``).
 
-    A missing or short file raises (reference src/cross_section.cu:17-21
-    prints and continues with garbage)."""
+    A missing, short or malformed file raises (reference
+    src/cross_section.cu:17-21 prints and continues with garbage)."""
     device = resolve(device)
     if not path:
         path = _BUNDLED
-    data = np.loadtxt(path, dtype=np.float64, max_rows=N_STEPS)
-    data = np.atleast_2d(np.asarray(data, dtype=np.float32))
-    if data.shape != (N_STEPS, 2):
-        raise ValueError(
-            f"cross-section table {path!r} has shape {data.shape}, "
-            f"expected ({N_STEPS}, 2)"
-        )
+    data = fastio.parse_float_pairs(path, N_STEPS).astype(np.float32)
     return torch.from_numpy(data).to(device)
 
 

@@ -9,8 +9,9 @@ Reference equivalents (src/utility.cu):
   * printCSV(): the timing CSV with the header ``CSV_HEADER`` (:87-106),
     kept identical so the reference's analyse/ scripts read our output.
 
-PNGs are written by a minimal pure-Python encoder (8-bit RGB, one IDAT,
-filter 0 on every row); ``read_png`` decodes that format back to pixels.
+PNGs are written by the port's IO library (``utils/fastio.py``: 8-bit RGB,
+one IDAT, filter 0 on every row); ``read_png`` decodes that format back to
+pixels.
 """
 
 from __future__ import annotations
@@ -22,33 +23,13 @@ from typing import Iterable, List
 
 import numpy as np
 
+# write_png: the log hook's encoder, the port's IO library
+from .utils.fastio import PNG_SIGNATURE, write_png  # noqa: F401
+
 CSV_HEADER = (
     "func,init n,iterations,mobility steps,block size,sleep time,"
     "split chance,final n,time"
 )
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 array as a PNG file."""
-    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[row].tobytes() for row in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        c = struct.pack(">I", len(data)) + tag + data
-        return c + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    png = (
-        _PNG_SIGNATURE
-        + chunk(b"IHDR", ihdr)
-        + chunk(b"IDAT", zlib.compress(raw, 6))
-        + chunk(b"IEND", b"")
-    )
-    with open(path, "wb") as f:
-        f.write(png)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -57,7 +38,7 @@ def read_png(path: str) -> np.ndarray:
     for any other file."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] != _PNG_SIGNATURE:
+    if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = 8, None, b""
     while pos + 8 <= len(data):

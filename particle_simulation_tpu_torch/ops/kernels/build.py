@@ -16,13 +16,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
 import subprocess
-import time
 
 from ...cross_section import N_STEPS
+from ...utils.buildlib import build_once, source_hash
 from .push_mcc import kernel_defines
 from .worklog import LOOKBACK_REGIONS, RESULT, TILE
 
@@ -123,13 +122,10 @@ def nvcc_flags() -> list:
     ]
 
 
-def _source_hash(flags) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
-    for name in sorted(os.listdir(CSRC)):
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(name.encode())
-            h.update(f.read())
-    return h.hexdigest()[:16]
+def _sources() -> list:
+    """The CUDA sources and headers, whose bytes name the library."""
+    return [os.path.join(CSRC, name) for name in sorted(os.listdir(CSRC))
+            if name.endswith((".cu", ".cuh"))]
 
 
 class KernelLibrary:
@@ -155,13 +151,11 @@ class KernelLibrary:
 def load() -> KernelLibrary:
     """Build (if this source hash was not built yet) and load the kernels."""
     flags = nvcc_flags()
-    so = os.path.join(BUILD_DIR, f"libpst_kernels_{_source_hash(flags)}.so")
-    log = ""
-    t0 = time.perf_counter()
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR,
+                      f"libpst_kernels_{source_hash(flags, _sources())}.so")
+
+    def compile_and_link(tmp: str) -> str:
         nvcc = nvcc_path()
-        tmp = f"{so}.{os.getpid()}.tmp"
         objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
         procs = [
             subprocess.Popen(
@@ -170,7 +164,7 @@ def load() -> KernelLibrary:
             )
             for src, obj in zip(SOURCES, objs)
         ]
-        failed = []
+        log, failed = "", []
         for src, proc in zip(SOURCES, procs):
             out, _ = proc.communicate()
             log += f"{src}:\n{out}"
@@ -187,5 +181,7 @@ def load() -> KernelLibrary:
                 os.remove(obj)
         if failed:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
-        os.replace(tmp, so)
-    return KernelLibrary(so, time.perf_counter() - t0, log)
+        return log
+
+    seconds, log = build_once(so, compile_and_link)
+    return KernelLibrary(so, seconds, log)

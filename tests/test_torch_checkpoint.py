@@ -55,6 +55,32 @@ def test_latest_step_and_hook(tmp_path):
     assert checkpoint.latest_step(d) == 12
 
 
+def test_npz_checkpoints_resume(tmp_path):
+    """tests/test_checkpoint.py's case: the hook with the JAX package's
+    ``backend="npz"`` writes a checkpoint that ``latest_step`` finds,
+    ``load_npz`` reads back and ``resume_run`` continues."""
+    d = str(tmp_path / "npz_ckpt")
+    os.makedirs(d)
+    head = run_pic(FULL.replace(poisson_steps=2), print_header=False,
+                   device="cpu")
+    hook = checkpoint.make_checkpoint_hook(FULL, d, backend="npz")
+    hook(2, head.state)
+    assert checkpoint.latest_step(d) == 2
+    st, step = checkpoint.load_npz(os.path.join(d, "step_000002.npz"), "cpu")
+    assert step == 2
+    np.testing.assert_array_equal(st.pos.numpy(), head.state.pos.numpy())
+    resumed = checkpoint.resume_run(FULL, d, device="cpu")
+    full = run_pic(FULL, print_header=False, device="cpu")
+    assert resumed.final_n == full.final_n
+    np.testing.assert_array_equal(multiset_with_ids(resumed.state),
+                                  multiset_with_ids(full.state))
+
+
+def test_orbax_backend_is_refused(tmp_path):
+    with pytest.raises(ValueError, match="orbax is a JAX library"):
+        checkpoint.make_checkpoint_hook(FULL, str(tmp_path), backend="orbax")
+
+
 def test_resume_equals_the_uninterrupted_run(tmp_path):
     d = str(tmp_path / "ck")
     full = run_pic(FULL.replace(verbose=1), print_header=False, device="cpu",

@@ -1,7 +1,8 @@
 """The port imports neither jax nor the JAX package, at import time or
 anywhere in its sources (the test process itself has jax loaded through
-conftest.py, so the import check runs in a fresh interpreter), and every
-module imports without pandas, matplotlib or PIL."""
+conftest.py, so the import check runs in a fresh interpreter), no source
+names the JAX package's C extension, and every module imports without
+pandas, matplotlib or PIL."""
 
 import os
 import re
@@ -32,6 +33,8 @@ MODULES = [
     "particle_simulation_tpu_torch.state",
     "particle_simulation_tpu_torch.testing",
     "particle_simulation_tpu_torch.utils",
+    "particle_simulation_tpu_torch.utils.buildlib",
+    "particle_simulation_tpu_torch.utils.fastio",
     "particle_simulation_tpu_torch.utils.profiling",
     "particle_simulation_tpu_torch.ops.grid",
     "particle_simulation_tpu_torch.ops.physics",
@@ -111,5 +114,18 @@ def test_sources_import_no_jax():
     py.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(py) >= len(MODULES)
     for path in py:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
+
+
+def test_sources_name_no_jax_extension():
+    """The port builds its own IO library (csrc/fastio.c): no source of it
+    reads the JAX package's C extension or its source folder."""
+    pattern = re.compile(r"native/|\b_fastio\b")
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+             if f.endswith((".py", ".c", ".cu", ".cuh"))]
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    assert any(p.endswith("fastio.c") for p in paths)
+    for path in paths:
         with open(path) as f:
             assert not pattern.search(f.read()), path
