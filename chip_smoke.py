@@ -12,7 +12,8 @@ Phases, each printing one line or a few:
    sublane_gather.cu and lookup_bench.cu, one nvcc process each, in
    parallel) and print the build time and each kernel's registers, stack
    and spills (probes/ptxas.py; the engines by their template arguments,
-   the reference and the general instantiations);
+   the reference and the general instantiations, the open ones as "depth
+   and rounds open");
 4. each kernel against its plain PyTorch version on the same inputs, each
    Poisson step: the sorted particle multiset with ids and the counters
    n, added, removed, overflow, pushes_lo, pushes_hi must be equal
@@ -166,11 +167,33 @@ Phases, each printing one line or a few:
    (e) 8b's call counts: each mode's table load and every PNG it wrote
        went through the library.
    Its results are the ``native_io`` line, before the kernels' line.
+13. the engines' open instantiations (any spawn depth and Threefry round
+    count, read at run time; the compiled set is depth 1-4 with rounds 13
+    and 20), its wall time bounded by OPEN_BUDGET_S:
+   (a) each engine's open symbol at the main path's (2, 13) against its
+       compiled instantiation on the main path's state at step 1, the
+       reference and the general model, block2 and perstep: every output
+       tensor bit for bit, the info and the result words;
+   (b) the open variants against their plain versions at the const churn
+       of 4a at (6, 12) (2 steps) and (16, 5) (1 step, more depths than a
+       block has warps), and the general model at (6, 12): multiset with
+       ids, n and the info dicts exact;
+   (c) ``run_pic`` of tests/test_pallas.py's configuration (spawn depth 6)
+       under dynamic and dynamic_old equal to sync, each launching its
+       open instantiation once a step (the launch counts at 0 before);
+   (d) the main path's phases (1M electrons, capacity 2M, 256^3, T=100),
+       1 warm and 3 timed steps each: the compiled (2, 13), the open
+       symbol at (2, 13) (the same final multiset) and the open variant at
+       (6, 12), whose step 1 the plain version also runs (equal info).
+   Its results are the open variants' entries of the kernels' line.
 
 Any failed check raises, so the script exits non-zero.  The last line is
 the device record {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on their path, their times, the plain
-version's and the library call's, and the bound: the least time the H100
+version's and the library call's, and the bound (the open variants as
+``worklog_phase_open`` and ``staged_phase_open``, ``variant_of`` their
+engine, their launches those of 13c, their times 13d's at (6, 12), beside
+``ms_open_2_13`` and ``ms_compiled_2_13``): the least time the H100
 could take for the same work, from the bytes each input and output must
 move once (3.35 TB/s) and the operations these inputs need (67 TFLOP/s
 float32), whichever is larger (probes/common.py); the line before that
@@ -292,6 +315,15 @@ CLI_COUNTING_IO = (
     "runpy.run_module('particle_simulation_tpu_torch', run_name='__main__',\n"
     "                 alter_sys=True)\n"
 )
+# 13: the open instantiations.  (b) (spawn_depth, rng_rounds) pairs outside
+# the compiled set at the const churn of 4a, with the Poisson steps each
+# runs; (c) tests/test_pallas.py's configuration (spawn depth 6, the const
+# table); (d) the main path's pair through the open symbol, then (6, 12)
+OPEN_CHURN = (((6, 12), 2), ((16, 5), 1))
+PALLAS_CFG = dict(init_n=300, capacity=8192, poisson_steps=2,
+                  poisson_timestep=6, grid_size=(32, 32, 32), spawn_depth=6)
+OPEN_TIMED = (6, 12)
+OPEN_BUDGET_S = 45.0
 
 
 def log(msg: str) -> None:
@@ -1415,6 +1447,212 @@ def native_io_on_card(dev, io_calls: dict) -> dict:
     return out
 
 
+def open_on_card(dev) -> dict:
+    """Phase 13 (the module docstring): the engines' open instantiations.
+    Returns the two open variants' entries of the kernels' line."""
+    import numpy as np
+    import torch
+
+    from particle_simulation_tpu_torch import SimConfig, cross_section
+    from particle_simulation_tpu_torch.ops.kernels import push_mcc as pm
+    from particle_simulation_tpu_torch.ops.kernels import worklog as wl
+    from particle_simulation_tpu_torch.ops.step import grid_phase, poisson_step
+    from particle_simulation_tpu_torch.probes.common import (
+        bound_ms, bound_terms,
+    )
+    from particle_simulation_tpu_torch.runtime import (
+        multiset_with_ids, run_pic, sorted_particle_array,
+    )
+    from particle_simulation_tpu_torch.state import setup_particles
+
+    t_phase = time.perf_counter()
+    sine = cross_section.load_table(cross_section.bundled_paths()[0], dev)
+    const = cross_section.load_table(cross_section.bundled_paths()[1], dev)
+    # name -> (wrapper, phase, phase through the open symbol, plain phase,
+    # scheduler)
+    engines = {
+        "worklog_phase": (wl.worklog_phase, wl.mobility_phase_worklog,
+                          wl.mobility_phase_worklog_open,
+                          wl.mobility_phase_worklog_plain, "dynamic"),
+        "staged_phase": (pm.staged_phase, pm.mobility_phase_dynamic,
+                         pm.mobility_phase_dynamic_open,
+                         pm.mobility_phase_dynamic_plain, "dynamic_old"),
+    }
+    keys = ("added", "removed", "overflow", "pushes_lo", "pushes_hi")
+    out = {}
+
+    def same_bits(a, b):
+        return a.n == b.n and all(
+            torch.equal(x.view(torch.int32), y.view(torch.int32))
+            for x, y in zip(a[:6], b[:6]))
+
+    def timed(fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(stop)
+
+    # (a) the open symbol at the main path's (2, 13) against the compiled
+    # instantiation, on the main path's state at step 1: every output
+    # tensor, the info and the result words but the grid's size
+    main_cfg = SimConfig(**MAIN)
+    st = poisson_step(setup_particles(main_cfg, device=dev), 0, sine,
+                      main_cfg)[0]
+    for name, (wrapper, phase, opened, _, scheduler) in engines.items():
+        for models in ({}, MAGNETIZED_ARGON):
+            for mode in ("block2", "perstep"):
+                cfg = main_cfg.replace(scheduler=scheduler, rng_mode=mode,
+                                       **models)
+                g = grid_phase(st, cfg)
+                a, ai = phase(g, 1, sine, cfg, cfg.poisson_timestep)
+                ra = dict(wrapper.last)
+                before = wrapper.open_launches
+                b, bi = opened(g, 1, sine, cfg, cfg.poisson_timestep)
+                rb = dict(wrapper.last)
+                tag = (f"13a {name} model {pm.model_bits(cfg)} {mode}")
+                check(wrapper.open_launches - before == 1,
+                      f"{tag}: the open symbol did not launch")
+                check(same_bits(a, b) and ai == bi,
+                      f"{tag}: open differs from compiled ({ai} vs {bi})")
+                ra.pop("blocks"), rb.pop("blocks")
+                check(ra == rb, f"{tag}: result words {ra} vs {rb}")
+                log(f"  {tag}: open equal to compiled bit for bit, n={b.n} "
+                    f"added={bi['added']} passes={rb['passes']}, open grid "
+                    f"{wrapper.last['blocks']} blocks")
+    log("13a: each open symbol equal to the compiled instantiation at the "
+        "main path's (2, 13), bit for bit (reference and general, block2 "
+        "and perstep)")
+
+    # (b) the open variants against their plain versions at the churn
+    max_err = {name: 0.0 for name in engines}
+    cases = [(pair, steps, {}) for pair, steps in OPEN_CHURN]
+    cases.append((OPEN_CHURN[0][0], 1, MAGNETIZED_ARGON))
+    for (depth, rounds), steps, models in cases:
+        for name, (wrapper, phase, _, plain, scheduler) in engines.items():
+            cfg = SimConfig(**dict(CHURN, scheduler=scheduler), **models,
+                            spawn_depth=depth, rng_rounds=rounds)
+            check(not pm.compiled(cfg), f"13b: {cfg} is compiled")
+            st = setup_particles(cfg, device=dev)
+            for s in range(steps):
+                g = grid_phase(st, cfg)
+                before = wrapper.open_launches
+                (k, ki), k_ms = timed(phase, g, s, const, cfg,
+                                      cfg.poisson_timestep)
+                check(wrapper.open_launches - before == 1,
+                      f"13b {name}: the open instantiation did not launch")
+                (p, pi), p_ms = timed(plain, g, s, const, cfg,
+                                      cfg.poisson_timestep)
+                tag = (f"13b {name} depth {depth} rounds {rounds} model "
+                       f"{pm.model_bits(cfg)} step {s}")
+                x, y = multiset_with_ids(k), multiset_with_ids(p)
+                check(x.shape == y.shape and np.array_equal(x, y),
+                      f"{tag}: multiset differs from plain")
+                check(ki == pi and k.n == p.n,
+                      f"{tag}: info {ki} vs plain {pi}")
+                check(not ki["overflow"] and ki["added"] > 0,
+                      f"{tag}: overflow or no churn {ki}")
+                max_err[name] = max(max_err[name], float(np.max(np.abs(
+                    x[:, :9].view(np.float32) - y[:, :9].view(np.float32)),
+                    initial=0.0)))
+                log(f"  {tag}: equal to plain (info too), n={k.n} "
+                    f"added={ki['added']} kernel {k_ms:.2f} ms plain "
+                    f"{p_ms:.2f} ms")
+                st = k
+    log(f"13b: the open variants equal to plain at the churn at (6, 12) and "
+        f"(16, 5), the general model at (6, 12)")
+
+    # (c) tests/test_pallas.py's configuration through run_pic: both
+    # engines (the open instantiations) equal to sync
+    base = run_pic(SimConfig(**PALLAS_CFG, scheduler="sync"), const,
+                   print_header=False, device=dev)
+    for name, (wrapper, _, _, _, scheduler) in engines.items():
+        wrapper.launches = wrapper.open_launches = 0
+        run = run_pic(SimConfig(**PALLAS_CFG, scheduler=scheduler), const,
+                      print_header=False, device=dev)
+        out[name] = {"launches": wrapper.open_launches}
+        check(wrapper.launches == wrapper.open_launches == 2,
+              f"13c {scheduler}: {wrapper.launches} launches, "
+              f"{wrapper.open_launches} open")
+        check(run.final_n == base.final_n and np.array_equal(
+            sorted_particle_array(run.state),
+            sorted_particle_array(base.state)),
+            f"13c {scheduler}: final n {run.final_n} vs sync "
+            f"{base.final_n}, or the particles differ")
+        log(f"  13c {scheduler}: equal to sync, final n={run.final_n}, "
+            f"{name} open launches {wrapper.open_launches}")
+    log("13c: tests/test_pallas.py's configuration (spawn depth 6) equal to "
+        "sync under dynamic and dynamic_old")
+
+    # (d) the main path's phases: the compiled (2, 13), the open symbol at
+    # (2, 13) and the open variant at OPEN_TIMED, 1 warm and 3 timed steps
+    # each, then the plain version at OPEN_TIMED's step 1
+    depth, rounds = OPEN_TIMED
+    for name, (wrapper, phase, opened, plain, scheduler) in engines.items():
+        cfg = main_cfg.replace(scheduler=scheduler)
+        open_cfg = cfg.replace(spawn_depth=depth, rng_rounds=rounds)
+        variants = (("compiled (2, 13)", phase, cfg),
+                    ("open (2, 13)", opened, cfg),
+                    (f"open {OPEN_TIMED}", phase, open_cfg))
+        ms, finals = {}, {}
+        for label, fn, vcfg in variants:
+            st = setup_particles(vcfg, device=dev)
+            rec = []
+            for s in range(4):
+                g = grid_phase(st, vcfg)
+                (st, info), t = timed(fn, g, s, sine, vcfg,
+                                      vcfg.poisson_timestep)
+                pushes = info["pushes_lo"] + (info["pushes_hi"] << 30)
+                rec.append((t, g.n, st.n, pushes))
+            check(not info["overflow"], f"13d {name} {label}: overflow")
+            ms[label] = rec[1:]
+            finals[label] = multiset_with_ids(st)
+            times = [r[0] for r in rec[1:]]
+            log(f"  13d {name} {label}: phase steps 1-3 "
+                + ", ".join(f"{t:.3f}" for t in times)
+                + f" ms, mean {sum(times) / 3:.3f}, median "
+                f"{sorted(times)[1]:.3f}, final n={st.n}")
+        check(np.array_equal(finals["compiled (2, 13)"],
+                             finals["open (2, 13)"]),
+              f"13d {name}: the open (2, 13) run differs from the compiled")
+        g = grid_phase(poisson_step(setup_particles(open_cfg, device=dev), 0,
+                                    sine, open_cfg)[0], open_cfg)
+        (p, pi), p_ms = timed(plain, g, 1, sine, open_cfg,
+                              open_cfg.poisson_timestep)
+        (k, ki), _ = timed(phase, g, 1, sine, open_cfg,
+                           open_cfg.poisson_timestep)
+        check(ki == pi, f"13d {name} {OPEN_TIMED} step 1: {ki} vs plain {pi}")
+        rec = ms[f"open {OPEN_TIMED}"]
+        times = [r[0] for r in rec]
+        n_bytes = sum(RECORD_BYTES * (r[1] + r[2])
+                      + cross_section.N_STEPS * 8 for r in rec) / 3
+        n_ops = sum(OPS_PER_PUSH * r[3] for r in rec) / 3
+        by_bytes, by_ops = bound_terms(n_bytes, n_ops)
+        bound, by = bound_ms(n_bytes, n_ops)
+        log(f"bound {name}_open: {n_bytes:.6g} B -> {by_bytes:.4f} ms, "
+            f"{n_ops:.6g} operations -> {by_ops:.4f} ms; {by} set it")
+        log(f"13d {name}: plain at {OPEN_TIMED} step 1 {p_ms:.2f} ms, equal "
+            "info")
+        mean = lambda label: sum(r[0] for r in ms[label]) / 3
+        out[name].update({
+            "max_abs_err": max_err[name],
+            "ms": sum(times) / 3,
+            "ms_median": sorted(times)[1],
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "ms_open_2_13": mean("open (2, 13)"),
+            "ms_compiled_2_13": mean("compiled (2, 13)"),
+        })
+    elapsed = time.perf_counter() - t_phase
+    check(elapsed < OPEN_BUDGET_S,
+          f"13: {elapsed:.1f} s, over its {OPEN_BUDGET_S:.0f} s bound")
+    log(f"13: the open instantiations, {elapsed:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2030,6 +2268,9 @@ def main() -> int:
     # ---- 12. the native IO library ----
     native_io = native_io_on_card(dev, entry["io_calls"])
 
+    # ---- 13. the open instantiations ----
+    opened = open_on_card(dev)
+
     log(card())  # again here, so the end of the output names the card
     log(json.dumps({"native_io": native_io}))
     log(json.dumps({"kernels": [{
@@ -2085,7 +2326,20 @@ def main() -> int:
         "plain_ms": field_plain_ms,
         **bounds("field_gather", *field_work),
         "library_ms": None,
-    }, *probe_entries]}))
+    }, *({
+        "name": f"{name}_open",
+        "variant_of": name,
+        "route": "cuda",
+        "source": f"particle_simulation_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        **opened[name],
+        "library_ms": None,
+    } for name, source, replaces in (
+        ("worklog_phase", "worklog.cu",
+         "particle_simulation_tpu/ops/pallas/worklog.py:302"),
+        ("staged_phase", "staged.cu",
+         "particle_simulation_tpu/ops/pallas/push_mcc.py:1113"))),
+        *probe_entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

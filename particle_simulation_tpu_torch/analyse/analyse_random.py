@@ -26,10 +26,10 @@ SEED = 39587
 
 def histogram(n: int = 100_000, seed: int = SEED, device=None):
     """(counts, edges) of the collision draws in [0, 100) of particles
-    0..n-1 at Poisson step 0, mobility step 1 (``rng.step_draws``)."""
+    0..n-1 at Poisson step 0, mobility step 1 (``rng.step_uniform``)."""
     device = resolve(device)
     hi, lo = rng.initial_ids(seed, torch.arange(n, device=device))
-    u = rng.step_draws(seed, hi, lo, 0, 1, 0.0, 100.0)[0]
+    u = rng.step_uniform(seed, hi, lo, 0, 1, 0.0, 100.0)
     return np.histogram(u.cpu().numpy(), bins=20, range=(0, 100))
 
 

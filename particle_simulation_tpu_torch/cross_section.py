@@ -29,6 +29,8 @@ _DATA = os.path.join(
 )
 _BUNDLED = os.path.join(_DATA, "cross_section.txt")
 _BUNDLED_CONST = os.path.join(_DATA, "cross_section_const.txt")
+# the port's own data folder, which ensure_bundled_tables writes
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 # jnp.log10(x) lowers to log(x) * float32(1/ln 10); the bucket scale is
 # float32(N_STEPS / 22)
@@ -94,6 +96,20 @@ def argon_like_table(gas_density: float = 1e20, dt: float = 1e-9,
 
     return physical_table(sigma_ion, sigma_abs, gas_density, dt,
                           n_steps=n_steps)
+
+
+def ensure_bundled_tables(data_dir: str = DATA) -> tuple[str, str]:
+    """Write the two bundled tables (``generate_table`` and the constant
+    50/50 table) into ``data_dir`` where they are missing, in the JAX
+    package's format; returns their paths (sine, const)."""
+    paths = tuple(os.path.join(data_dir, os.path.basename(p))
+                  for p in (_BUNDLED, _BUNDLED_CONST))
+    os.makedirs(data_dir, exist_ok=True)
+    tables = (generate_table, lambda: np.full((N_STEPS, 2), 50.0, np.float32))
+    for path, make in zip(paths, tables):
+        if not os.path.exists(path):
+            write_table(path, make())
+    return paths
 
 
 def load_table(path: str = "", device=None) -> torch.Tensor:

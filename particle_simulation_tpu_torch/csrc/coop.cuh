@@ -5,8 +5,10 @@
 // refused rather than deadlocked at its first grid barrier.
 //
 // The SM count, the dynamic shared-memory attribute and the occupancy do
-// not change between phases: each launch site queries them once per device
-// and keeps the resident grid size in its own CoopCache.
+// not change between phases: each launch site of the compiled set queries
+// them once per device and keeps the resident grid size in its own
+// CoopCache.  The open instantiations take their grid from the caller, who
+// sizes their scratch by it (resident_blocks, launch_cooperative_grid).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,6 +26,44 @@ struct CoopCache {
   std::atomic<int> blocks[kMaxDevices];
 };
 
+// The resident grid of ``kernel``: its blocks per SM at ``threads`` and
+// ``smem_bytes`` of dynamic shared memory, times the SMs (sets the kernel's
+// dynamic shared-memory attribute on the way).  A block that does not fit
+// an SM at all is cudaErrorInvalidConfiguration.
+inline cudaError_t resident_blocks(const void* kernel, int threads,
+                                   int smem_bytes, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem_bytes);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// A cooperative launch of exactly ``blocks`` blocks; more than can be
+// resident is refused (cudaErrorCooperativeLaunchTooLarge).
+inline cudaError_t launch_cooperative_grid(const void* kernel,
+                                           unsigned int blocks, int threads,
+                                           int smem_bytes, void** args,
+                                           cudaStream_t stream) {
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel, dim3(blocks), dim3(threads), args, smem_bytes, stream);
+  // a refused launch also leaves its error as the last one: clear it
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 inline cudaError_t launch_cooperative(const void* kernel, int threads,
                                       int smem_bytes, long long max_blocks,
                                       void** args, CoopCache& cache,
@@ -34,28 +74,14 @@ inline cudaError_t launch_cooperative(const void* kernel, int threads,
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   int resident = cache.blocks[dev].load(std::memory_order_relaxed);
   if (resident == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          threads, smem_bytes);
-    }
+    err = resident_blocks(kernel, threads, smem_bytes, &resident);
     if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    resident = per_sm * sms;
     cache.blocks[dev].store(resident, std::memory_order_relaxed);
   }
   const unsigned int blocks = static_cast<unsigned int>(
       resident < max_blocks ? resident : max_blocks);
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(threads), args,
-                                    smem_bytes, stream);
-  // a refused launch also leaves its error as the last one: clear it
-  const cudaError_t last = cudaGetLastError();
-  return err != cudaSuccess ? err : last;
+  return launch_cooperative_grid(kernel, blocks, threads, smem_bytes, args,
+                                 stream);
 }
 
 }  // namespace pst

@@ -155,17 +155,58 @@ PST_HD void isotropic_velocity(float wx, float wy, float wz,
   cz = speed * cos_t;
 }
 
+// The spawn depth and Threefry rounds of a lane's steps, and where its
+// children go.  FixedLimits: both known at compile time, the children in
+// the caller's array (registers), the instantiations of the compiled set.
+template <int D, int ROUNDS>
+struct FixedLimits {
+  Child (&children)[D];
+
+  PST_HD bool full(int depth) const { return depth >= D; }
+
+  PST_HD void cipher(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
+                     uint32_t& o0, uint32_t& o1) const {
+    threefry2x32<ROUNDS>(k0, k1, c0, c1, o0, o1);
+  }
+
+  PST_HD void store(int depth, const Child& c) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (d == depth) children[d] = c;
+    }
+  }
+};
+
+// OpenLimits: both read at run time (the engines' open instantiations);
+// child d goes to children[d * stride], a slice of a scratch buffer in
+// global memory.
+struct OpenLimits {
+  Child* children;
+  long long stride;
+  int depth;
+  int rounds;
+
+  PST_HD bool full(int d) const { return d >= depth; }
+
+  PST_HD void cipher(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
+                     uint32_t& o0, uint32_t& o1) const {
+    threefry2x32_rt(rounds, k0, k1, c0, c1, o0, o1);
+  }
+
+  PST_HD void store(int d, const Child& c) const { children[d * stride] = c; }
+};
+
 // Runs lane L (an unfinished record) through steps start..t_steps and
 // returns the number of steps it moved.  ``table`` is the table in device
 // memory (const float2*) or staged in shared memory (SharedTable).  On
 // return L.status is ALIVE or a child stamp (finished), DEAD, or the
-// suspended packing; children[0..n_children) hold the children it spawned
-// (at most D: a lane with D children suspends at its next step).  GENERAL
-// selects the instantiation that reads k.model (the header note).
-template <int D, int ROUNDS, bool BLOCK2, bool GENERAL, typename Table>
-PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
-                        Table table,
-                        const PhysConsts& k) {
+// suspended packing; the children it spawned are stored at depths
+// 0..n_children (at most the spawn depth: a lane whose child slots are full
+// suspends at its next step).  GENERAL selects the instantiation that reads
+// k.model (the header note).
+template <bool BLOCK2, bool GENERAL, typename Limits, typename Table>
+PST_HD int lane_steps(Lane& L, const Limits& lim, int& n_children,
+                      Table table, const PhysConsts& k) {
   const int s0 = L.status;
   int stamp = is_suspended(s0) ? suspended_stamp(s0) : s0;
   const float kx = L.ax * k.half_dt;
@@ -177,7 +218,7 @@ PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
   int depth = 0;
   int pushes = 0;
   for (int t = start_step(s0); t <= k.t_steps; ++t) {
-    if (depth >= D) {
+    if (lim.full(depth)) {
       stamp = encode_suspended(t, stamp);
       break;
     }
@@ -186,7 +227,7 @@ PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
     if (!BLOCK2 || !have_block || (t & 1) == 0) {
       const uint32_t ctr1 =
           BLOCK2 ? (static_cast<uint32_t>(t) & ~1u) : static_cast<uint32_t>(t);
-      threefry2x32<ROUNDS>(key0, L.id_lo, k.poisson_step, ctr1, b0, b1);
+      lim.cipher(key0, L.id_lo, k.poisson_step, ctr1, b0, b1);
       have_block = true;
     }
     const Draw dr = draw_from_block(b0, b1, BLOCK2 && (t & 1));
@@ -241,13 +282,8 @@ PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
           L.vy = -wy;
           L.vz = -wz;
         }
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          if (d == depth) {
-            children[d] = Child{nx, ny, nz, cx, cy, cz, t, dr.child_hi,
-                                dr.child_lo};
-          }
-        }
+        lim.store(depth, Child{nx, ny, nz, cx, cy, cz, t, dr.child_hi,
+                               dr.child_lo});
         ++depth;
       } else if (dr.u < sr.x + sr.y) {
         stamp = kStatusDead;
@@ -280,13 +316,8 @@ PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
     const float2 sr = table_lookup(table, e, k.log10_e, k.bucket_scale);
     if (dr.u < sr.x) {
       // split: the child copies the moved lane, the lane's velocity flips
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        if (d == depth) {
-          children[d] = Child{nx, ny, nz, wx, wy, wz, t, dr.child_hi,
-                              dr.child_lo};
-        }
-      }
+      lim.store(depth, Child{nx, ny, nz, wx, wy, wz, t, dr.child_hi,
+                             dr.child_lo});
       ++depth;
       L.vx = -wx;
       L.vy = -wy;
@@ -299,6 +330,21 @@ PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
   L.status = stamp;
   n_children = depth;
   return pushes;
+}
+
+// The compiled set: spawn depth D and ROUNDS rounds, children[0..n_children)
+template <int D, int ROUNDS, bool BLOCK2, bool GENERAL, typename Table>
+PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
+                        Table table, const PhysConsts& k) {
+  return lane_steps<BLOCK2, GENERAL>(L, FixedLimits<D, ROUNDS>{children},
+                                     n_children, table, k);
+}
+
+// The open instantiations: any spawn depth and round count (``lim``)
+template <bool BLOCK2, bool GENERAL, typename Table>
+PST_HD int advance_lane(Lane& L, const OpenLimits& lim, int& n_children,
+                        Table table, const PhysConsts& k) {
+  return lane_steps<BLOCK2, GENERAL>(L, lim, n_children, table, k);
 }
 
 }  // namespace pst

@@ -91,6 +91,16 @@
 // block an SM, 3.42 and 3.42 with the sweep tile not inlined, 2.99 and
 // 3.00 with 8 slots a scan thread in place of 16.
 //
+// The compiled set is spawn depth 1..4 with 13 or 20 Threefry rounds.
+// Every other (depth, rounds) runs the open instantiation (D = kOpen,
+// exported as pst_staged_phase_open), which reads both at run time: a
+// lane's children go to a global scratch (a Child per resident thread and
+// depth, pst_staged_open_blocks), the pass's children a depth sit in the
+// dynamic shared memory after the table, and the depth + 1 streams are
+// ranked two at a time, so a depth past the block's 12 warps is no limit.
+// The staging regions and the look-back words are the host's, sized by the
+// depth as for the compiled set.
+//
 // Look-back words: a region is a ticket and a counter, then a word per
 // stream and sweep tile (a scan tile uses one word; it is kItems sweep
 // tiles long).  kRegions = 3 regions rotate over the sub-phases, each
@@ -127,7 +137,10 @@ constexpr int kHeader = PST_STAGED_HEADER;
 constexpr int kTableBytes = PST_N_STEPS * static_cast<int>(sizeof(float2));
 constexpr int kNF = 12;
 constexpr int kStatusField = 9;
-constexpr int kMaxDepth = 4;
+constexpr int kMaxDepth = 4;  // the compiled set's largest spawn depth
+// D = kOpen is the open instantiation: spawn depth and rounds from the
+// arguments (ROUNDS is unused), the children in a scratch buffer
+constexpr int kOpen = 0;
 static_assert(kTile % 32 == 0 && kTile <= 1024, "a block is whole warps");
 // a region's header words
 constexpr int kTicket = 0;
@@ -169,6 +182,12 @@ struct Args {
   long long* result;
   const float2* table;
   PhysConsts k;
+  // the open instantiation's spawn depth, rounds and children: depth
+  // slices of one Child a resident thread, child d of thread g at
+  // kids[d * threads + g]
+  int depth;
+  int rounds;
+  Child* kids;
 };
 
 // Rows written earlier in this launch are read through L2 (ld.global.cg),
@@ -260,6 +279,18 @@ __device__ __forceinline__ void compact_tile(int tile, long long n,
   }
 }
 
+// A pass's children a depth: in registers in the compiled set; in the
+// open instantiation, whose depth is a launch argument, in the dynamic
+// shared memory after the table (each block holds the same counts).
+template <int D>
+struct DepthCounts {
+  using type = long long[D];
+};
+template <>
+struct DepthCounts<kOpen> {
+  using type = long long*;
+};
+
 // What a pass sweeps: the n_susp slots of its list (ascending), then the
 // children of the pass before that fit, which take the slots from n_app on
 // in the order they were staged (depth-major, then by parent) and enter the
@@ -270,7 +301,7 @@ struct PassIn {
   int n_susp;
   int n_list;              // n_susp + the children that fit
   const int32_t* kids;     // the pass before's staging regions (D, 12, cap)
-  long long k_depth[D];    // its children a depth
+  typename DepthCounts<D>::type k_depth;  // its children a depth
   long long n_app;
 };
 
@@ -371,6 +402,104 @@ __device__ __forceinline__ void sweep_tile(
   if (suspended) next_list[base[D] + ex[D]] = static_cast<int32_t>(slot);
 }
 
+// sweep_tile for the open instantiation, whose spawn depth may pass the
+// block's warps: the lane's children go to its slices of the scratch, and
+// the depth + 1 streams are ranked two at a time (a block scan of the pair,
+// a look-back each by warps 0 and 1, the pair's emission).
+template <bool BLOCK2, bool GENERAL>
+__device__ __forceinline__ void sweep_tile_open(
+    const Args& a, int tile, const PassIn<kOpen>& in, int32_t* stack,
+    int32_t* next_list, int32_t* stage, unsigned long long* words,
+    long long& pushes, int& died) {
+  __shared__ unsigned int base[2];  // the pair's offsets
+  extern __shared__ float2 table_rows[];
+  const long long cap = a.cap;
+  const int depth = a.depth;
+  const int j = tile * kTile + threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * kTile;
+  const OpenLimits kids{a.kids + blockIdx.x * kTile + threadIdx.x, threads,
+                        depth, a.rounds};
+  Lane L;
+  int n_kids = 0;
+  bool suspended = false;
+  long long slot = 0;
+  if (j < in.n_list) {
+    if (j < in.n_susp) {
+      slot = __ldcg(in.list + j);
+      L = load_row(stack + slot, cap);
+    } else {
+      long long off = j - in.n_susp;
+      slot = in.n_app + off;
+      int d = 0;
+      while (d < depth - 1 && off >= in.k_depth[d]) off -= in.k_depth[d++];
+      L = load_row(in.kids + d * kNF * cap + off, cap);
+      // the fields the write-back below leaves alone
+      int32_t* p = stack + slot;
+      p[6 * cap] = __float_as_int(L.ax);
+      p[7 * cap] = __float_as_int(L.ay);
+      p[8 * cap] = __float_as_int(L.az);
+      p[10 * cap] = static_cast<int32_t>(L.id_hi);
+      p[11 * cap] = static_cast<int32_t>(L.id_lo);
+    }
+    pushes += advance_lane<BLOCK2, GENERAL>(L, kids, n_kids,
+                                            SharedTable{table_rows}, a.k);
+    int32_t* p = stack + slot;
+    p[0] = __float_as_int(L.px);
+    p[cap] = __float_as_int(L.py);
+    p[2 * cap] = __float_as_int(L.pz);
+    p[3 * cap] = __float_as_int(L.vx);
+    p[4 * cap] = __float_as_int(L.vy);
+    p[5 * cap] = __float_as_int(L.vz);
+    const bool live = L.status == kStatusAlive || L.status > 0;
+    p[kStatusField * cap] = live ? encode_finished(L.status) : L.status;
+    suspended = is_suspended(L.status);
+    died += L.status == kStatusDead ? 1 : 0;
+  }
+  // stream s < depth: the children of depth s; stream depth: the
+  // suspended lanes
+  auto flag = [&](int s) {
+    return s < depth ? (n_kids > s ? 1 : 0)
+                     : (s == depth && suspended ? 1 : 0);
+  };
+  const int warp = threadIdx.x >> 5;
+  for (int i = 0; i <= depth; i += 2) {
+    int ex[2], tot[2];
+    if (i) __syncthreads();  // the scan's warp sums and base are reused
+    block_scan2<kTile>(flag(i), flag(i + 1), ex[0], ex[1], tot[0], tot[1]);
+    if (warp < 2 && i + warp <= depth) {
+      const unsigned int e = lookback_exclusive(
+          words + (i + warp) * a.tiles_max, tile,
+          static_cast<unsigned int>(warp ? tot[1] : tot[0]));
+      if ((threadIdx.x & 31) == 0) base[warp] = e;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = i + h;
+      if (!flag(s)) continue;
+      const long long at = static_cast<long long>(base[h]) + ex[h];
+      if (s == depth) {
+        next_list[at] = static_cast<int32_t>(slot);
+        continue;
+      }
+      const Child c = kids.children[s * threads];
+      int32_t* out = stage + s * kNF * cap + at;
+      out[0] = __float_as_int(c.px);
+      out[cap] = __float_as_int(c.py);
+      out[2 * cap] = __float_as_int(c.pz);
+      out[3 * cap] = __float_as_int(c.vx);
+      out[4 * cap] = __float_as_int(c.vy);
+      out[5 * cap] = __float_as_int(c.vz);
+      out[6 * cap] = __float_as_int(L.ax);
+      out[7 * cap] = __float_as_int(L.ay);
+      out[8 * cap] = __float_as_int(L.az);
+      out[9 * cap] = c.stamp;
+      out[10 * cap] = static_cast<int32_t>(c.id_hi);
+      out[11 * cap] = static_cast<int32_t>(c.id_lo);
+    }
+  }
+}
+
 __device__ __forceinline__ long long warp_sum(long long v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -401,7 +530,10 @@ __device__ __forceinline__ long long total_of(unsigned long long* words,
 // Two blocks an SM (at most 85 registers a thread, ptxas spilling the
 // rest) at spawn depth 1 and 2, as worklog_phase runs; unbounded, the
 // kernel takes 168 registers and one block an SM, which measured slower
-// (the source note).  Depths 3 and 4 run one block an SM.
+// (the source note).  Depths 3 and 4 run one block an SM.  The open
+// instantiation (D = kOpen = 0) runs two: at one block an SM (168
+// registers, no spill) its main-path phase measured 16-31% slower at
+// spawn depths 2, 6 and 16 on an H100 at 700 W (PERF.md section 6).
 template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
   cg::grid_group grid = cg::this_grid();
@@ -409,8 +541,10 @@ __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
   for (int j = threadIdx.x; j < PST_N_STEPS; j += kTile) {
     table_rows[j] = a.table[j];
   }
+  int depth = D;
+  if constexpr (D == kOpen) depth = a.depth;
   const long long cap = a.cap;
-  const long long region_words = kHeader + (D + 1) * a.tiles_max;
+  const long long region_words = kHeader + (depth + 1) * a.tiles_max;
   const long long n_threads = static_cast<long long>(gridDim.x) * kTile;
   const long long gid = static_cast<long long>(blockIdx.x) * kTile +
                         threadIdx.x;
@@ -496,6 +630,10 @@ __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
     in.n_list = in.n_susp;
     in.kids = a.stage;
     in.n_app = 0;
+    if constexpr (D == kOpen) {
+      in.k_depth = reinterpret_cast<long long*>(table_rows + PST_N_STEPS);
+      for (int d = threadIdx.x; d < depth; d += kTile) in.k_depth[d] = 0;
+    }
 #pragma unroll
     for (int d = 0; d < D; ++d) in.k_depth[d] = 0;
   }
@@ -510,7 +648,7 @@ __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
     ++pass;
     int32_t* stack = a.stacks + cur * kNF * cap;
     int32_t* next_list = a.list + ((pass + 1) & 1) * cap;
-    int32_t* stage = a.stage + (pass & 1) * D * kNF * cap;
+    int32_t* stage = a.stage + (pass & 1) * depth * kNF * cap;
 
     // (b) sweep and stage
     unsigned long long* r = open();
@@ -518,22 +656,38 @@ __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
     {
       int died = 0;
       for (int tile = ticket(r); tile < n_tiles; tile = ticket(r)) {
-        sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, in, stack, next_list,
-                                               stage, r + kHeader, pushes,
-                                               died);
+        if constexpr (D == kOpen) {
+          sweep_tile_open<BLOCK2, GENERAL>(a, tile, in, stack, next_list,
+                                           stage, r + kHeader, pushes, died);
+        } else {
+          sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, in, stack,
+                                                 next_list, stage,
+                                                 r + kHeader, pushes, died);
+        }
       }
       add_block_count(died, r + kCount);
     }
     close();
     long long k = 0;
-    long long k_depth[D];
+    typename DepthCounts<D>::type k_depth;
+    if constexpr (D == kOpen) {
+      // the counts in shared memory, which the sweep that read them has
+      // left (the barrier above); the next reads follow the block barrier
+      k_depth = in.k_depth;
+      for (int d = 0; d < depth; ++d) {
+        const long long kd = total_of(r + kHeader + d * a.tiles_max, n_tiles);
+        if (threadIdx.x == 0) k_depth[d] = kd;
+        k += kd;
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       k_depth[d] = total_of(r + kHeader + d * a.tiles_max, n_tiles);
       k += k_depth[d];
     }
     int n_susp = static_cast<int>(
-        total_of(r + kHeader + D * a.tiles_max, n_tiles));
+        total_of(r + kHeader + depth * a.tiles_max, n_tiles));
     dead += static_cast<long long>(lookback_load(r + kCount));
 
     // (c) the pre-append reclaim (never past an overflow, whose count of
@@ -671,21 +825,35 @@ cudaError_t dispatch(int rounds, int block2, Args& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+template <bool BLOCK2, bool GENERAL>
+const void* open_kernel() {
+  return (const void*)staged_phase<kOpen, 0, BLOCK2, GENERAL>;
+}
+
+const void* open_kernel(int block2, bool general) {
+  return block2 ? (general ? open_kernel<true, true>()
+                           : open_kernel<true, false>())
+                : (general ? open_kernel<false, true>()
+                           : open_kernel<false, false>());
+}
+
+// the open instantiation's dynamic shared memory: the table, then the
+// children a depth of the pass before
+long long open_smem_bytes(int depth) {
+  return kTableBytes + static_cast<long long>(depth) * sizeof(long long);
+}
+
 }  // namespace staged
 }  // namespace pst
 
-// A whole staged mobility phase on ``stream``: the input state (pos, vel,
-// acc (C, 3) float32; status, id_hi, id_lo (C,) int32; n0 created slots)
-// to the output state of the same capacity, through the record stacks
-// ``stacks`` ((2, 12, C) int32), the staging regions ``stage`` ((2, depth,
-// 12, C) int32), the work lists ``list`` ((2, C) int32) and the look-back
-// words ``lookback`` ((PST_STAGED_REGIONS, PST_STAGED_HEADER + (depth + 1)
-// * tiles_max) int64, tiles_max >= ceil(C / PST_STAGED_TILE)), all of any
-// content.  ``result`` (PST_STAGED_RESULT_WORDS int64) gets the kRes*
-// words.  ``model`` is PhysConsts::model (0: the reference
-// instantiation), t0..s2 the boris rotation's constants.  Returns a cudaError_t (0 on success), including a refused
-// cooperative launch.
-extern "C" int pst_staged_phase(
+namespace {
+
+// The body of both exported phases: the arguments checked and gathered,
+// then the launch of the compiled instantiation of (depth, rounds, block2,
+// model 0 or not), or with ``open`` of the open instantiation on
+// ``kid_blocks`` blocks (at most tiles_max), whose children go to ``kids``
+// (kid_blocks * kTile * depth Child records).
+int run_phase(
     const void* pos, const void* vel, const void* acc, const void* status,
     const void* id_hi, const void* id_lo, long long n0, void* out_pos,
     void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
@@ -695,11 +863,14 @@ extern "C" int pst_staged_phase(
     float size_z, float log10_e, float bucket_scale, unsigned int seed,
     unsigned int poisson_step, int t_steps, int depth, int rounds,
     int block2, int model, float t0, float t1, float t2, float s0,
-    float s1, float s2, void* stream) {
+    float s1, float s2, bool open, void* kids, long long kid_blocks,
+    void* stream) {
   using namespace pst::staged;
   // list entries and look-back counts are 32-bit: at most C of each a pass
   if (n0 <= 0 || capacity <= 0 || capacity > INT32_MAX || depth < 1 ||
-      depth > kMaxDepth || tiles_max < (capacity + kTile - 1) / kTile) {
+      (!open && depth > kMaxDepth) ||
+      tiles_max < (capacity + kTile - 1) / kTile ||
+      (open && (kids == nullptr || kid_blocks < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -741,10 +912,27 @@ extern "C" int pst_staged_phase(
   a.k.rot_s[0] = s0;
   a.k.rot_s[1] = s1;
   a.k.rot_s[2] = s2;
+  a.depth = depth;
+  a.rounds = rounds;
+  a.kids = static_cast<pst::Child*>(kids);
   // the reference model runs the instantiations of the main path
   const bool general = model != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (open) {
+    const void* kernel = open_kernel(block2, general);
+    const long long smem = open_smem_bytes(depth);
+    if (smem > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    void* args[] = {&a};
+    const long long blocks = kid_blocks < tiles_max ? kid_blocks : tiles_max;
+    return static_cast<int>(pst::launch_cooperative_grid(
+        kernel, static_cast<unsigned int>(blocks), kTile,
+        static_cast<int>(smem), args, st));
+  }
   switch (depth) {
     case 1:
       err = general ? dispatch<1, true>(rounds, block2, a, st)
@@ -765,4 +953,78 @@ extern "C" int pst_staged_phase(
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// A whole staged mobility phase on ``stream``: the input state (pos, vel,
+// acc (C, 3) float32; status, id_hi, id_lo (C,) int32; n0 created slots)
+// to the output state of the same capacity, through the record stacks
+// ``stacks`` ((2, 12, C) int32), the staging regions ``stage`` ((2, depth,
+// 12, C) int32), the work lists ``list`` ((2, C) int32) and the look-back
+// words ``lookback`` ((PST_STAGED_REGIONS, PST_STAGED_HEADER + (depth + 1)
+// * tiles_max) int64, tiles_max >= ceil(C / PST_STAGED_TILE)), all of any
+// content.  ``result`` (PST_STAGED_RESULT_WORDS int64) gets the kRes*
+// words.  ``model`` is PhysConsts::model (0: the reference
+// instantiation), t0..s2 the boris rotation's constants.  The compiled
+// set: depth 1..4, rounds 13 and 20.  Returns a cudaError_t (0 on
+// success), including a refused cooperative launch.
+extern "C" int pst_staged_phase(
+    const void* pos, const void* vel, const void* acc, const void* status,
+    const void* id_hi, const void* id_lo, long long n0, void* out_pos,
+    void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
+    void* out_id_lo, long long capacity, void* stacks, void* stage,
+    void* list, void* lookback, long long tiles_max, void* result,
+    const void* table, float dt, float half_dt, float size_x, float size_y,
+    float size_z, float log10_e, float bucket_scale, unsigned int seed,
+    unsigned int poisson_step, int t_steps, int depth, int rounds,
+    int block2, int model, float t0, float t1, float t2, float s0,
+    float s1, float s2, void* stream) {
+  return run_phase(pos, vel, acc, status, id_hi, id_lo, n0, out_pos, out_vel,
+                   out_acc, out_status, out_id_hi, out_id_lo, capacity,
+                   stacks, stage, list, lookback, tiles_max, result, table,
+                   dt, half_dt, size_x, size_y, size_z, log10_e, bucket_scale,
+                   seed, poisson_step, t_steps, depth, rounds, block2, model,
+                   t0, t1, t2, s0, s1, s2, false, nullptr, 0, stream);
+}
+
+// The same phase through the open instantiation, for any depth >= 1 and
+// any round count: ``kids`` holds kid_blocks * PST_STAGED_TILE * depth
+// Child records (9 words each) of any content, and the grid is kid_blocks
+// blocks (at most tiles_max), which must all be resident
+// (pst_staged_open_blocks at the same depth).
+extern "C" int pst_staged_phase_open(
+    const void* pos, const void* vel, const void* acc, const void* status,
+    const void* id_hi, const void* id_lo, long long n0, void* out_pos,
+    void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
+    void* out_id_lo, long long capacity, void* stacks, void* stage,
+    void* list, void* lookback, long long tiles_max, void* result,
+    const void* table, float dt, float half_dt, float size_x, float size_y,
+    float size_z, float log10_e, float bucket_scale, unsigned int seed,
+    unsigned int poisson_step, int t_steps, int depth, int rounds,
+    int block2, int model, float t0, float t1, float t2, float s0,
+    float s1, float s2, void* kids, long long kid_blocks, void* stream) {
+  return run_phase(pos, vel, acc, status, id_hi, id_lo, n0, out_pos, out_vel,
+                   out_acc, out_status, out_id_hi, out_id_lo, capacity,
+                   stacks, stage, list, lookback, tiles_max, result, table,
+                   dt, half_dt, size_x, size_y, size_z, log10_e, bucket_scale,
+                   seed, poisson_step, t_steps, depth, rounds, block2, model,
+                   t0, t1, t2, s0, s1, s2, true, kids, kid_blocks, stream);
+}
+
+// The blocks of the open instantiation (block2, model 0 or not, spawn
+// depth ``depth``, which sizes its shared memory) that can be resident at
+// once on the current device, into *blocks: the grid its children scratch
+// is sized for.  Returns a cudaError_t; a depth whose shared memory does
+// not fit an SM is cudaErrorInvalidConfiguration or cudaErrorInvalidValue.
+extern "C" int pst_staged_open_blocks(int block2, int general, int depth,
+                                      int* blocks) {
+  using namespace pst::staged;
+  const long long smem = open_smem_bytes(depth);
+  if (depth < 1 || smem > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(pst::resident_blocks(
+      open_kernel(block2, general != 0), kTile, static_cast<int>(smem),
+      blocks));
 }

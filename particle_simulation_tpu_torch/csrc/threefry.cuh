@@ -62,6 +62,46 @@ PST_HD void threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
   o1 = x1;
 }
 
+// Threefry-2x32 with a round count known at run time (any rounds >= 0, as
+// rng.py's loop takes it; a count <= 0 runs no round), for the engines'
+// open instantiations.  The same rounds as threefry2x32<ROUNDS>, bit for
+// bit: four rounds and a key injection per group, the rotations of the
+// group's half of the schedule, then the rounds past the last whole group.
+// The key words rotate through registers, so no array is indexed at run
+// time.
+PST_HD void threefry2x32_rt(int rounds, uint32_t k0, uint32_t k1,
+                            uint32_t c0, uint32_t c1, uint32_t& o0,
+                            uint32_t& o1) {
+  uint32_t x0 = c0 + k0;
+  uint32_t x1 = c1 + k1;
+  // injection i adds ks[i % 3] and ks[(i + 1) % 3]: (ka, kb, kc) hold
+  // ks[i % 3], ks[(i + 1) % 3], ks[(i + 2) % 3] for the next injection i
+  uint32_t ka = k1, kb = k0 ^ k1 ^ kKsParity, kc = k0;
+  int r = 0;
+  for (uint32_t inject = 1; r + 4 <= rounds; ++inject, r += 4) {
+    const int half = (inject & 1u) ? 0 : 4;  // rounds r..r+3 use r % 8
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, threefry_rotation(half + j));
+      x1 ^= x0;
+    }
+    x0 += ka;
+    x1 += kb + inject;
+    const uint32_t next = ka;
+    ka = kb;
+    kb = kc;
+    kc = next;
+  }
+  for (; r < rounds; ++r) {
+    x0 += x1;
+    x1 = rotl32(x1, threefry_rotation(r % 8));
+    x1 ^= x0;
+  }
+  o0 = x0;
+  o1 = x1;
+}
+
 // Top 24 bits -> [lo, lo + span), scale and shift rounded separately as
 // in rng.uniform_from_bits (the draws use lo = 0).
 PST_HD float uniform_from_bits(uint32_t bits, float span, float lo) {

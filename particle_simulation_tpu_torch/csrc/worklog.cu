@@ -66,6 +66,16 @@
 // path costs the registers and the operations of its models, and its time
 // is PERF.md's (section 6).
 //
+// The compiled set is spawn depth 1..4 with 13 or 20 Threefry rounds, the
+// children in registers.  Every other (depth, rounds), as the JAX package
+// takes any, runs the open instantiation (D = kOpen, exported as
+// pst_worklog_phase_open): both are launch arguments (physics.cuh
+// OpenLimits, threefry.cuh threefry2x32_rt), and a lane's children go to
+// its slices of a global scratch sized by the host for the resident grid
+// (pst_worklog_open_blocks): a Child (36 bytes) per resident thread and
+// depth, 3.6 MB a depth at 264 blocks of 384 threads.  Its emission and its
+// result are the compiled instantiations'.
+//
 // Measured alternatives (chip_smoke.py phase 5 on trees that differ only
 // in the kernel, two runs of each alternated in one call, on one NVIDIA H100
 // 80GB HBM3 at 700 W; PERF.md section 6): the device's busy time in the
@@ -133,6 +143,12 @@ struct PhaseArgs {
   long long* result;
   const float2* table;
   PhysConsts k;
+  // the open instantiation's spawn depth, rounds and children: depth
+  // slices of one Child a resident thread, child d of thread g at
+  // kids[d * threads + g]
+  int depth;
+  int rounds;
+  Child* kids;
 };
 
 __device__ __forceinline__ Lane load_state(const PhaseArgs& a, int i) {
@@ -272,6 +288,70 @@ __device__ __forceinline__ void sweep_tile(
   }
 }
 
+// sweep_tile for the open instantiation: the lane's children go to its
+// slices of the scratch and come back from there for the emission.
+template <bool BLOCK2, bool GENERAL>
+__device__ __forceinline__ void sweep_tile_open(
+    const PhaseArgs& a, int tile, int n_src, const int32_t* src,
+    int32_t* dst, unsigned long long* done_words,
+    unsigned long long* work_words, long long n_done, long long& pushes,
+    long long& children) {
+  __shared__ unsigned int base[2];  // the tile's done and work offsets
+  extern __shared__ float2 table_rows[];
+  const int i = tile * kTile + threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * kTile;
+  const OpenLimits kids{a.kids + blockIdx.x * kTile + threadIdx.x, threads,
+                        a.depth, a.rounds};
+  Lane L;
+  int n_kids = 0;
+  bool done = false;
+  bool suspended = false;
+  if (i < n_src) {
+    L = src ? load_work(src, a.work_cap, i) : load_state(a, i);
+    if (is_unfinished(L.status)) {
+      pushes += advance_lane<BLOCK2, GENERAL>(L, kids, n_kids,
+                                              SharedTable{table_rows}, a.k);
+      children += n_kids;
+      done = L.status == kStatusAlive || L.status > 0;
+      suspended = is_suspended(L.status);
+    }
+  }
+  const int n_work = (suspended ? 1 : 0) + n_kids;
+  int ex_d, ex_w, tot_d, tot_w;
+  block_scan2<kTile>(done ? 1 : 0, n_work, ex_d, ex_w, tot_d, tot_w);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const unsigned int e = lookback_exclusive(
+        warp == 0 ? done_words : work_words, tile,
+        static_cast<unsigned int>(warp == 0 ? tot_d : tot_w));
+    if ((threadIdx.x & 31) == 0) base[warp] = e;
+  }
+  __syncthreads();
+  if (done) {
+    const long long od = n_done + base[0] + ex_d;
+    if (od < a.cap) store_done(a, od, L);
+  }
+  long long ow = static_cast<long long>(base[1]) + ex_w;
+  if (suspended) {
+    if (ow < a.work_cap) store_work(dst, a.work_cap, ow, L);
+    ++ow;
+  }
+  for (int d = 0; d < n_kids && ow < a.work_cap; ++d, ++ow) {
+    const Child c = kids.children[d * threads];
+    Lane r = L;
+    r.px = c.px;
+    r.py = c.py;
+    r.pz = c.pz;
+    r.vx = c.vx;
+    r.vy = c.vy;
+    r.vz = c.vz;
+    r.status = c.stamp;
+    r.id_hi = c.id_hi;
+    r.id_lo = c.id_lo;
+    store_work(dst, a.work_cap, ow, r);
+  }
+}
+
 __device__ __forceinline__ long long warp_sum(long long v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -279,6 +359,15 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   }
   return v;
 }
+
+// D = kOpen is the open instantiation: spawn depth and rounds from the
+// arguments (ROUNDS is unused), the children in the scratch.  Its bound is
+// every instantiation's: ptxas gives the reference open kernel 80
+// registers and 66 bytes of spills, two blocks an SM; with
+// __launch_bounds__(kTile, 1) it took 112 registers and one block an SM,
+// and its main-path phase measured 12-23% slower on an H100 at 700 W
+// (PERF.md section 6).
+constexpr int kOpen = 0;
 
 template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
@@ -325,9 +414,15 @@ __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
     while (true) {
       const int tile = lookback_ticket(reinterpret_cast<unsigned int*>(region));
       if (tile >= n_tiles) break;
-      sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, n_src, src, dst,
-                                             done_words, work_words, n_done,
-                                             pushes, children);
+      if constexpr (D == kOpen) {
+        sweep_tile_open<BLOCK2, GENERAL>(a, tile, n_src, src, dst,
+                                         done_words, work_words, n_done,
+                                         pushes, children);
+      } else {
+        sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, n_src, src, dst,
+                                               done_words, work_words,
+                                               n_done, pushes, children);
+      }
     }
     grid.sync();
     // the last tile's inclusive prefixes are the pass's totals
@@ -376,6 +471,18 @@ cudaError_t launch_phase(PhaseArgs& a, cudaStream_t stream) {
                             a.tiles_max, args, cache, stream);
 }
 
+template <bool BLOCK2, bool GENERAL>
+const void* open_kernel() {
+  return (const void*)worklog_phase<kOpen, 0, BLOCK2, GENERAL>;
+}
+
+const void* open_kernel(int block2, bool general) {
+  return block2 ? (general ? open_kernel<true, true>()
+                           : open_kernel<true, false>())
+                : (general ? open_kernel<false, true>()
+                           : open_kernel<false, false>());
+}
+
 template <int D, bool GENERAL>
 cudaError_t dispatch_phase(int rounds, int block2, PhaseArgs& a,
                            cudaStream_t stream) {
@@ -396,17 +503,14 @@ cudaError_t dispatch_phase(int rounds, int block2, PhaseArgs& a,
 
 }  // namespace pst
 
-// A whole mobility phase on ``stream``: the n0 records of the input state
-// (pos, vel, acc (C, 3) float32; status, id_hi, id_lo (C,) int32) to the
-// output state of the same capacity, through the work logs ``logs``
-// ((2, 12, work_cap) int32), with the look-back words ``lookback``
-// ((kRegions, 1 + 2 * tiles_max) int64, any content).  ``result``
-// (PST_WORKLOG_RESULT_WORDS int64) gets the kRes* words.  ``model`` is
-// PhysConsts::model (0: the reference instantiation), t0..s2 the boris
-// rotation's constants.
-// Returns a cudaError_t (0 on success), including a refused cooperative
-// launch.
-extern "C" int pst_worklog_phase(
+namespace {
+
+// The body of both exported phases: the arguments checked and gathered,
+// then the launch of the compiled instantiation of (depth, rounds, block2,
+// model 0 or not), or with ``open`` of the open instantiation on
+// ``kid_blocks`` blocks (at most tiles_max), whose children go to ``kids``
+// (kid_blocks * kTile * depth Child records).
+int run_phase(
     const void* pos, const void* vel, const void* acc, const void* status,
     const void* id_hi, const void* id_lo, int n0, void* out_pos,
     void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
@@ -416,14 +520,16 @@ extern "C" int pst_worklog_phase(
     float log10_e, float bucket_scale, unsigned int seed,
     unsigned int poisson_step, int t_steps, int depth, int rounds,
     int block2, int model, float t0, float t1, float t2, float s0,
-    float s1, float s2, void* stream) {
+    float s1, float s2, bool open, void* kids, long long kid_blocks,
+    void* stream) {
   using namespace pst;
   // a look-back word holds a pass's count in 32 bits: at most 1 + depth
   // work records for each of at most max(n0, work_cap) source records
   const long long most = n0 > work_cap ? n0 : work_cap;
   if (n0 <= 0 || n0 > capacity || work_cap <= 0 || depth < 1 ||
       most * (1 + depth) > UINT32_MAX ||
-      tiles_max < (most + kTile - 1) / kTile) {
+      tiles_max < (most + kTile - 1) / kTile ||
+      (open && (kids == nullptr || kid_blocks < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PhaseArgs a;
@@ -464,10 +570,24 @@ extern "C" int pst_worklog_phase(
   a.k.rot_s[0] = s0;
   a.k.rot_s[1] = s1;
   a.k.rot_s[2] = s2;
+  a.depth = depth;
+  a.rounds = rounds;
+  a.kids = static_cast<Child*>(kids);
   // the reference model runs the instantiations of the main path
   const bool general = model != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (open) {
+    const void* kernel = open_kernel(block2, general);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTableBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    void* args[] = {&a};
+    const long long blocks = kid_blocks < tiles_max ? kid_blocks : tiles_max;
+    return static_cast<int>(launch_cooperative_grid(
+        kernel, static_cast<unsigned int>(blocks), kTile, kTableBytes, args,
+        st));
+  }
   switch (depth) {
     case 1:
       err = general ? dispatch_phase<1, true>(rounds, block2, a, st)
@@ -488,4 +608,69 @@ extern "C" int pst_worklog_phase(
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// A whole mobility phase on ``stream``: the n0 records of the input state
+// (pos, vel, acc (C, 3) float32; status, id_hi, id_lo (C,) int32) to the
+// output state of the same capacity, through the work logs ``logs``
+// ((2, 12, work_cap) int32), with the look-back words ``lookback``
+// ((kRegions, 1 + 2 * tiles_max) int64, any content).  ``result``
+// (PST_WORKLOG_RESULT_WORDS int64) gets the kRes* words.  ``model`` is
+// PhysConsts::model (0: the reference instantiation), t0..s2 the boris
+// rotation's constants.  The compiled set: depth 1..4, rounds 13 and 20.
+// Returns a cudaError_t (0 on success), including a refused cooperative
+// launch.
+extern "C" int pst_worklog_phase(
+    const void* pos, const void* vel, const void* acc, const void* status,
+    const void* id_hi, const void* id_lo, int n0, void* out_pos,
+    void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
+    void* out_id_lo, long long capacity, void* logs, long long work_cap,
+    void* lookback, long long tiles_max, void* result, const void* table,
+    float dt, float half_dt, float size_x, float size_y, float size_z,
+    float log10_e, float bucket_scale, unsigned int seed,
+    unsigned int poisson_step, int t_steps, int depth, int rounds,
+    int block2, int model, float t0, float t1, float t2, float s0,
+    float s1, float s2, void* stream) {
+  return run_phase(pos, vel, acc, status, id_hi, id_lo, n0, out_pos, out_vel,
+                   out_acc, out_status, out_id_hi, out_id_lo, capacity, logs,
+                   work_cap, lookback, tiles_max, result, table, dt, half_dt,
+                   size_x, size_y, size_z, log10_e, bucket_scale, seed,
+                   poisson_step, t_steps, depth, rounds, block2, model, t0,
+                   t1, t2, s0, s1, s2, false, nullptr, 0, stream);
+}
+
+// The same phase through the open instantiation, for any depth >= 1 and
+// any round count: ``kids`` holds kid_blocks * PST_WORKLOG_TILE * depth
+// Child records (9 words each) of any content, and the grid is kid_blocks
+// blocks (at most tiles_max), which must all be resident
+// (pst_worklog_open_blocks).
+extern "C" int pst_worklog_phase_open(
+    const void* pos, const void* vel, const void* acc, const void* status,
+    const void* id_hi, const void* id_lo, int n0, void* out_pos,
+    void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
+    void* out_id_lo, long long capacity, void* logs, long long work_cap,
+    void* lookback, long long tiles_max, void* result, const void* table,
+    float dt, float half_dt, float size_x, float size_y, float size_z,
+    float log10_e, float bucket_scale, unsigned int seed,
+    unsigned int poisson_step, int t_steps, int depth, int rounds,
+    int block2, int model, float t0, float t1, float t2, float s0,
+    float s1, float s2, void* kids, long long kid_blocks, void* stream) {
+  return run_phase(pos, vel, acc, status, id_hi, id_lo, n0, out_pos, out_vel,
+                   out_acc, out_status, out_id_hi, out_id_lo, capacity, logs,
+                   work_cap, lookback, tiles_max, result, table, dt, half_dt,
+                   size_x, size_y, size_z, log10_e, bucket_scale, seed,
+                   poisson_step, t_steps, depth, rounds, block2, model, t0,
+                   t1, t2, s0, s1, s2, true, kids, kid_blocks, stream);
+}
+
+// The blocks of the open instantiation (block2, model 0 or not) that can
+// be resident at once on the current device, into *blocks: the grid its
+// children scratch is sized for.  Returns a cudaError_t.
+extern "C" int pst_worklog_open_blocks(int block2, int general,
+                                       int* blocks) {
+  using namespace pst;
+  return static_cast<int>(resident_blocks(open_kernel(block2, general != 0),
+                                          kTile, kTableBytes, blocks));
 }

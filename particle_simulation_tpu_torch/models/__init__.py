@@ -21,7 +21,20 @@ port (the plain cadences on any device and both CUDA engines):
   and ``argon_like_table`` written with ``write_table``.
 
 ``config.MODEL_VALUES`` lists the values; ``config.check_supported``
-refuses any other.
+refuses any other.  As the JAX package's ``models`` does, this package
+re-exports the integrators and the field paths and names the collision
+and field models.
 """
 
+from ..config import MODEL_VALUES
+from ..ops.grid import (  # noqa: F401
+    deposit,
+    gather_acceleration,
+    gather_acceleration_packdiff,
+    gather_acceleration_packed,
+)
+from ..ops.physics import INTEGRATORS, boris, leapfrog  # noqa: F401
 from . import poisson_fft  # noqa: F401
+
+COLLISION_MODELS = MODEL_VALUES["collision_model"]
+FIELD_MODELS = MODEL_VALUES["field_model"]

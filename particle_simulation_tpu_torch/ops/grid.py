@@ -130,6 +130,36 @@ def gather_acceleration(charge_flat, pos, weight, cell_size, grid_size,
     return torch.where(weight[:, None] > 0, acc, torch.zeros_like(acc))
 
 
+def _diff_field(dx, dy, dz, e_const) -> torch.Tensor:
+    """The acceleration grid of three diff grids: (..., 3) float32,
+    float32(diff) * float32(e_const)."""
+    e = torch.tensor(np.float32(e_const), device=dx.device)
+    return torch.stack([dx, dy, dz], dim=-1).to(torch.float32) * e
+
+
+def field_grid(charge_flat, grid_size, e_const) -> torch.Tensor:
+    """The full acceleration grid (gx, gy, gz, 3) float32, the reference's
+    updateGrid output (the JAX package's tests and diagnostics read it)."""
+    return _diff_field(*_int_diffs(charge_flat, grid_size), e_const)
+
+
+def _gather_rows(rows, flat, weight) -> torch.Tensor:
+    """(m, 3) rows of a (cells, 3) field at cells ``flat`` (-1 for a dead
+    slot), 0 where ``weight`` is 0."""
+    acc = rows[flat.clamp(min=0).long()]
+    return torch.where(weight[:, None] > 0, acc, torch.zeros_like(acc))
+
+
+def gather_acceleration_packed(charge_flat, pos, weight, cell_size,
+                               grid_size, e_const) -> torch.Tensor:
+    """The full-grid field as one (cells, 3) float32 row gather of
+    ``field_grid``: the same values as ``gather_acceleration_packdiff``."""
+    rows = field_grid(charge_flat, grid_size, e_const).reshape(-1, 3)
+    idx = cell_indices(pos, cell_size, grid_size)
+    flat = flatten_cells(idx[:, 0], idx[:, 1], idx[:, 2], grid_size)
+    return _gather_rows(rows, flat, weight)
+
+
 def pack_diffs(dx, dy, dz) -> torch.Tensor:
     """Three int32 diff grids with |diff| <= 511 -> one flat int32 grid of
     10-bit biased fields (dx in bits 20-29, dy 10-19, dz 0-9)."""
@@ -148,10 +178,8 @@ def _field_from_diffs(dx, dy, dz, flat, weight, e_const) -> torch.Tensor:
         return packed_field_gather(pack_diffs(dx, dy, dz), flat, weight,
                                    e_const)
     field_counts.rows_fallback += 1
-    e = torch.tensor(np.float32(e_const), device=flat.device)
-    rows = torch.stack([dx, dy, dz], dim=-1).reshape(-1, 3).to(torch.float32) * e
-    acc = rows[flat.clamp(min=0).long()]
-    return torch.where(weight[:, None] > 0, acc, torch.zeros_like(acc))
+    return _gather_rows(_diff_field(dx, dy, dz, e_const).reshape(-1, 3),
+                        flat, weight)
 
 
 def gather_acceleration_packdiff(charge_flat, pos, weight, cell_size,

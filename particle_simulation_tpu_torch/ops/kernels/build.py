@@ -71,6 +71,12 @@ SIGNATURES = {
         _F, _F, _F,             # s (boris rotation)
         _P,                     # stream
     ),
+    "pst_worklog_open_blocks": (
+        _I, _I, _P,             # block2, general, int* blocks
+    ),
+    "pst_staged_open_blocks": (
+        _I, _I, _I, _P,         # block2, general, depth, int* blocks
+    ),
     "pst_banded_gather": (
         _P, _P, _P, _P, _LL,    # table, rows, lanes, out, n
         _P,                     # stream
@@ -97,6 +103,14 @@ SIGNATURES = {
         _P,                     # int* blocks per SM
     ),
 }
+
+
+# the open instantiations take the compiled ones' arguments, then their
+# children scratch and its blocks, before the stream
+SIGNATURES.update({
+    f"pst_{e}_phase_open": (*SIGNATURES[f"pst_{e}_phase"][:-1], _P, _LL, _P)
+    for e in ("worklog", "staged")
+})
 
 
 def nvcc_path() -> str:

@@ -47,14 +47,19 @@ same selection (``physics.model_args``).
 
 Records travel as (12, C) int32 stacks in ``FIELD_NAMES`` order, float
 fields as bit patterns.  The JAX (rows, 128) field planes, their window
-padding and the staging-budget depth clamp are not carried over: the
-kernels are instantiated for spawn depths 1..4 and the wrappers raise
-beyond them.
+padding and the staging-budget depth clamp are not carried over: the port
+honours ``spawn_depth`` exactly.  Both kernels are compiled for spawn
+depths 1..4 and Threefry rounds 13 and 20 (``compiled``), the children in
+registers; every other (depth, rounds) runs their open instantiation,
+which reads both at run time and keeps a lane's children in a scratch
+buffer sized by the resident grid (``open_blocks``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -76,8 +81,9 @@ FIELD_NAMES = (
 )
 NF = len(FIELD_NAMES)
 
-MAX_DEPTH = 4        # spawn depths the kernels are instantiated for
-ROUNDS = (13, 20)    # Threefry round counts they are instantiated for
+MAX_DEPTH = 4        # spawn depths 1..MAX_DEPTH are compiled instantiations
+ROUNDS = (13, 20)    # and so are these Threefry round counts
+CHILD_WORDS = 9      # a Child of csrc/physics.cuh: 6 floats, stamp, id words
 
 _INF_START = 0x7FFFFFF
 
@@ -163,23 +169,56 @@ def check_f32(state: SimState, engine: str) -> None:
         raise ValueError(f32_only(engine))
 
 
+def compiled(config: SimConfig) -> bool:
+    """Whether the kernels have a compiled instantiation for the spawn
+    depth and the round count; any other pair runs the open one."""
+    return 1 <= config.spawn_depth <= MAX_DEPTH and config.rng_rounds in ROUNDS
+
+
 def check_kernel_args(config: SimConfig, table: torch.Tensor, device):
-    """Raise for what the compiled kernels do not take."""
-    if not 1 <= config.spawn_depth <= MAX_DEPTH:
-        raise ValueError(
-            f"spawn_depth={config.spawn_depth}: the kernel is built for "
-            f"1..{MAX_DEPTH}"
-        )
-    if config.rng_rounds not in ROUNDS:
-        raise ValueError(
-            f"rng_rounds={config.rng_rounds}: the kernel is built for {ROUNDS}"
-        )
+    """Raise for what the kernels do not take: a spawn depth below 1 (as
+    ``config.check_supported`` does) or a table that is not a contiguous
+    float32 (10000, 2) tensor on ``device``."""
+    if config.spawn_depth < 1:
+        raise ValueError(f"spawn_depth={config.spawn_depth} must be >= 1")
     if (table.device != device or table.dtype != torch.float32
             or table.shape != (N_STEPS, 2) or not table.is_contiguous()):
         raise ValueError(
             "the table must be a contiguous float32 (10000, 2) tensor on "
             f"{device}"
         )
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(symbol: str, device_index: int, *args) -> int:
+    from . import build
+
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.load().call(symbol, *args, ctypes.addressof(blocks))
+    return blocks.value
+
+
+def open_blocks(engine: str, config: SimConfig, device) -> int:
+    """The grid of ``engine``'s ("worklog" or "staged") open instantiation
+    at ``config``'s draw protocol, model and spawn depth on CUDA
+    ``device``: the blocks that can be resident at once, which its launch
+    takes and its children scratch is sized for (queried once a device).
+    Raises, with the depth and the shared memory, where a block does not
+    fit an SM."""
+    block2 = int(config.rng_mode == "block2")
+    general = int(model_bits(config) != 0)
+    index = torch.device(device).index or 0
+    extra = (config.spawn_depth,) if engine == "staged" else ()
+    try:
+        return _resident_blocks(f"pst_{engine}_open_blocks", index, block2,
+                                general, *extra)
+    except RuntimeError as e:
+        smem = N_STEPS * 8 + 8 * config.spawn_depth * (engine == "staged")
+        raise RuntimeError(
+            f"the {engine} engine's open instantiation at spawn_depth="
+            f"{config.spawn_depth} ({smem} B of dynamic shared memory a "
+            f"block) has no resident grid: {e}") from e
 
 
 # the bits of PhysConsts::model (csrc/physics.cuh kBoris ... kPeriodic); 0,
@@ -460,22 +499,27 @@ STAGED_RESULT = ("n", "n_live", "pushes", "passes", "reclaimed", "reclaims",
                  "stuck", "blocks")
 
 
-def staged_scratch_shapes(capacity: int, depth: int) -> dict:
+def staged_scratch_shapes(capacity: int, depth: int,
+                          kid_blocks: int = 0) -> dict:
     """Shapes of the phase's scratch buffers: two record stacks (the
     reclaim compacts one into the other), two sets of staging regions of C
     children a depth and two work lists (a pass reads one and writes the
     other), the look-back words (per region a ticket, a counter, then a
     word per stream and sweep tile of C slots: a stream per depth and one
-    for the suspended lanes) and the result words.  The number of passes
-    sizes nothing."""
+    for the suspended lanes) and the result words; with ``kid_blocks``, the
+    open instantiation's children scratch for a grid of that many blocks.
+    The number of passes sizes nothing."""
     tiles = -(-capacity // STAGED_TILE)
-    return {
+    shapes = {
         "stacks": (2, NF, capacity),
         "stage": (2, depth, NF, capacity),
         "list": (2, capacity),
         "lookback": (STAGED_REGIONS, REGION_HEADER + (depth + 1) * tiles),
         "result": (len(STAGED_RESULT),),
     }
+    if kid_blocks:
+        shapes["kids"] = (depth, kid_blocks * STAGED_TILE, CHILD_WORDS)
+    return shapes
 
 
 class StagedBuffers(NamedTuple):
@@ -487,17 +531,23 @@ class StagedBuffers(NamedTuple):
     list: torch.Tensor      # (2, C) int32
     lookback: torch.Tensor  # (regions, header + (depth + 1) * tiles) int64
     result: torch.Tensor    # (len(STAGED_RESULT),) int64
+    # the open instantiation's children (depth, threads, CHILD_WORDS)
+    # int32; None launches the compiled one
+    kids: Optional[torch.Tensor] = None
 
 
 _SCRATCH_DTYPES = {"stacks": torch.int32, "stage": torch.int32,
                    "list": torch.int32, "lookback": torch.int64,
-                   "result": torch.int64}
+                   "result": torch.int64, "kids": torch.int32}
 
 
-def staged_buffers(state: SimState, config: SimConfig) -> StagedBuffers:
+def staged_buffers(state: SimState, config: SimConfig,
+                   kid_blocks: int = 0) -> StagedBuffers:
     """Uninitialised buffers for one phase on the state's device (the
-    kernel writes or zeroes what it reads)."""
-    shapes = staged_scratch_shapes(state.capacity, config.spawn_depth)
+    kernel writes or zeroes what it reads); with ``kid_blocks``, for the
+    open instantiation on a grid of that many blocks."""
+    shapes = staged_scratch_shapes(state.capacity, config.spawn_depth,
+                                   kid_blocks)
     return StagedBuffers(empty_state(state.capacity, state.device), **{
         name: torch.empty(shape, dtype=_SCRATCH_DTYPES[name],
                           device=state.device)
@@ -510,9 +560,13 @@ def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
     """Launch one whole staged mobility phase on the current stream: the
     ``state.n`` created slots of ``state`` (read, never written) through
     every pass, reclaim and append to the compacted output ``bufs.out``;
-    ``bufs.result`` receives the ``STAGED_RESULT`` words.  Raises before
-    any launch on a buffer the kernel does not take."""
-    shapes = staged_scratch_shapes(state.capacity, config.spawn_depth)
+    ``bufs.result`` receives the ``STAGED_RESULT`` words.  With
+    ``bufs.kids`` the open instantiation runs (on as many blocks as the
+    scratch was sized for), else the compiled one.  Raises before any
+    launch on a buffer the kernel does not take."""
+    kid_blocks = 0 if bufs.kids is None else bufs.kids.shape[1] // STAGED_TILE
+    shapes = staged_scratch_shapes(state.capacity, config.spawn_depth,
+                                   kid_blocks)
     check_buffers("staged phase", state.device, [
         *state_buffers("state", state, state.capacity),
         *state_buffers("out", bufs.out, state.capacity),
@@ -520,8 +574,9 @@ def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
           for name, shape in shapes.items()),
     ])
     out = bufs.out
+    kids = () if bufs.kids is None else (bufs.kids.data_ptr(), kid_blocks)
     lib.call(
-        "pst_staged_phase",
+        "pst_staged_phase_open" if kids else "pst_staged_phase",
         state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
         state.status.data_ptr(), state.id_hi.data_ptr(),
         state.id_lo.data_ptr(), state.n,
@@ -531,20 +586,23 @@ def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
         bufs.list.data_ptr(), bufs.lookback.data_ptr(),
         (bufs.lookback.shape[1] - REGION_HEADER) // (config.spawn_depth + 1),
         bufs.result.data_ptr(), table.data_ptr(),
-        *phys_args(config, poisson_step, t_steps),
+        *phys_args(config, poisson_step, t_steps), *kids,
         torch.cuda.current_stream(state.device).cuda_stream,
     )
     staged_phase.launches += 1
+    staged_phase.open_launches += bool(kids)
 
 
 staged_phase.launches = 0
+staged_phase.open_launches = 0  # of them, launches of the open instantiation
 staged_phase.passes = 0    # passes the kernel counted, over every phase
 staged_phase.reclaims = 0  # reclaims the kernel made, over every phase
 staged_phase.last = {}     # the last phase's STAGED_RESULT words
 
 
 def _mobility_phase_dynamic_cuda(state: SimState, poisson_step: int, table,
-                                 config: SimConfig, t_steps: int):
+                                 config: SimConfig, t_steps: int,
+                                 force_open: bool = False):
     from . import build
 
     _staged_checks(state, t_steps)
@@ -552,7 +610,9 @@ def _mobility_phase_dynamic_cuda(state: SimState, poisson_step: int, table,
     if state.n_clamped == 0:
         return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), \
             _phase_info(0, state.n, state.capacity, 0, 0, 0, 0)
-    bufs = staged_buffers(state, config)
+    kid_blocks = (0 if compiled(config) and not force_open
+                  else open_blocks("staged", config, state.device))
+    bufs = staged_buffers(state, config, kid_blocks)
     staged_phase(build.load(), state, bufs, table, config, poisson_step,
                  t_steps)
     r = dict(zip(STAGED_RESULT, bufs.result.tolist()))  # the one readback
@@ -584,5 +644,16 @@ def mobility_phase_dynamic(state: SimState, poisson_step: int, table,
     )
 
 
+def mobility_phase_dynamic_open(state: SimState, poisson_step: int, table,
+                                config: SimConfig, t_steps: int):
+    """``mobility_phase_dynamic`` on a CUDA state through the open
+    instantiation at any spawn depth and round count, the compiled set's
+    too (chip_smoke.py holds the two against each other)."""
+    check_f32(state, "staged")
+    return _mobility_phase_dynamic_cuda(state, poisson_step, table, config,
+                                        t_steps, force_open=True)
+
+
 mobility_phase_dynamic.self_compacting = True
+mobility_phase_dynamic_open.self_compacting = True
 mobility_phase_dynamic_plain.self_compacting = True

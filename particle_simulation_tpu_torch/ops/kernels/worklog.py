@@ -17,7 +17,9 @@ Counterpart of ``particle_simulation_tpu/ops/pallas/worklog.py``:
   invariant: draws are keyed by genealogy).
 
 ``mobility_phase_worklog`` takes the plain version only for a state on the
-CPU; for a CUDA state it launches the kernel or raises.
+CPU; for a CUDA state it launches the kernel or raises: the compiled
+instantiation of the spawn depth and round count where there is one
+(``push_mcc.compiled``), else the open one.
 
 The kernel reads the caller's ``SimState`` tensors and writes the done log
 straight into the output ``SimState``; the work logs between passes are
@@ -30,7 +32,7 @@ look-back.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,8 +41,8 @@ from ...schedulers import mobility_phase_naive, pushes_info
 from ...state import SimState
 from .. import population
 from .push_mcc import (
-    NF, check_buffers, check_f32, check_kernel_args, empty_state,
-    phys_args, state_buffers,
+    CHILD_WORDS, NF, check_buffers, check_f32, check_kernel_args, compiled,
+    empty_state, open_blocks, phys_args, state_buffers,
 )
 
 # records a tile and threads a block of the phase kernel (-DPST_WORKLOG_TILE)
@@ -63,18 +65,24 @@ def work_capacity(config: SimConfig, capacity: int) -> int:
     return config.worklog_rows * 128 if config.worklog_rows else max(capacity // 2, 1)
 
 
-def scratch_shapes(config: SimConfig, capacity: int) -> dict:
+def scratch_shapes(config: SimConfig, capacity: int,
+                   kid_blocks: int = 0) -> dict:
     """Shapes of the phase's scratch buffers: the two work logs, the
     look-back words (per region a ticket, then a done and a work word per
-    tile of the largest pass) and the result words.  Neither the spawn
-    depth nor the number of passes sizes anything."""
+    tile of the largest pass) and the result words; with ``kid_blocks``,
+    the open instantiation's children scratch for a grid of that many
+    blocks (a Child a resident thread and depth).  Neither the spawn depth
+    (but for that scratch) nor the number of passes sizes anything."""
     w_cap = work_capacity(config, capacity)
     tiles = -(-max(capacity, w_cap) // TILE)
-    return {
+    shapes = {
         "logs": (2, NF, w_cap),
         "lookback": (LOOKBACK_REGIONS, 1 + 2 * tiles),
         "result": (len(RESULT),),
     }
+    if kid_blocks:
+        shapes["kids"] = (config.spawn_depth, kid_blocks * TILE, CHILD_WORDS)
+    return shapes
 
 
 class PhaseBuffers(NamedTuple):
@@ -85,32 +93,39 @@ class PhaseBuffers(NamedTuple):
     logs: torch.Tensor      # (2, 12, work_capacity) int32
     lookback: torch.Tensor  # (LOOKBACK_REGIONS, 1 + 2 * tiles) int64
     result: torch.Tensor    # (len(RESULT),) int64
+    # the open instantiation's children (depth, threads, CHILD_WORDS)
+    # int32; None launches the compiled one
+    kids: Optional[torch.Tensor] = None
 
 
-def phase_buffers(state: SimState, config: SimConfig) -> PhaseBuffers:
+_DTYPES = {"logs": torch.int32, "lookback": torch.int64,
+           "result": torch.int64, "kids": torch.int32}
+
+
+def phase_buffers(state: SimState, config: SimConfig,
+                  kid_blocks: int = 0) -> PhaseBuffers:
     """Uninitialised buffers for one phase on the state's device (the
-    kernel zeroes what needs it)."""
+    kernel zeroes what needs it); with ``kid_blocks``, for the open
+    instantiation on a grid of that many blocks."""
     dev, c = state.device, state.capacity
-    shapes = scratch_shapes(config, c)
+    return PhaseBuffers(empty_state(c, dev), **{
+        name: torch.empty(shape, dtype=_DTYPES[name], device=dev)
+        for name, shape in scratch_shapes(config, c, kid_blocks).items()
+    })
 
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
 
-    return PhaseBuffers(empty_state(c, dev),
-                        empty(shapes["logs"], torch.int32),
-                        empty(shapes["lookback"], torch.int64),
-                        empty(shapes["result"], torch.int64))
+def _kid_blocks(bufs: PhaseBuffers) -> int:
+    return 0 if bufs.kids is None else bufs.kids.shape[1] // TILE
 
 
 def _check_buffers(state: SimState, bufs: PhaseBuffers,
                    config: SimConfig) -> None:
     c = state.capacity
-    shapes = scratch_shapes(config, c)
+    shapes = scratch_shapes(config, c, _kid_blocks(bufs))
     check_buffers("work-log phase", state.device, [
         *state_buffers("state", state, c), *state_buffers("out", bufs.out, c),
-        ("logs", bufs.logs, torch.int32, shapes["logs"]),
-        ("lookback", bufs.lookback, torch.int64, shapes["lookback"]),
-        ("result", bufs.result, torch.int64, shapes["result"]),
+        *((name, getattr(bufs, name), _DTYPES[name], shape)
+          for name, shape in shapes.items()),
     ])
 
 
@@ -119,12 +134,15 @@ def worklog_phase(lib, state: SimState, bufs: PhaseBuffers, table,
     """Launch one whole mobility phase on the current stream: the
     ``state.n_clamped`` records of ``state`` (read, never written) through
     every pass to the done log ``bufs.out``; ``bufs.result`` receives the
-    ``RESULT`` words.  Raises before any launch on a buffer the kernel does
-    not take."""
+    ``RESULT`` words.  With ``bufs.kids`` the open instantiation runs (on
+    as many blocks as the scratch was sized for), else the compiled one.
+    Raises before any launch on a buffer the kernel does not take."""
     _check_buffers(state, bufs, config)
     out = bufs.out
+    kids = (() if bufs.kids is None
+            else (bufs.kids.data_ptr(), _kid_blocks(bufs)))
     lib.call(
-        "pst_worklog_phase",
+        "pst_worklog_phase_open" if kids else "pst_worklog_phase",
         state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
         state.status.data_ptr(), state.id_hi.data_ptr(),
         state.id_lo.data_ptr(), state.n_clamped,
@@ -134,19 +152,22 @@ def worklog_phase(lib, state: SimState, bufs: PhaseBuffers, table,
         bufs.logs.data_ptr(), bufs.logs.shape[-1],
         bufs.lookback.data_ptr(), (bufs.lookback.shape[1] - 1) // 2,
         bufs.result.data_ptr(), table.data_ptr(),
-        *phys_args(config, poisson_step, t_steps),
+        *phys_args(config, poisson_step, t_steps), *kids,
         torch.cuda.current_stream(state.device).cuda_stream,
     )
     worklog_phase.launches += 1
+    worklog_phase.open_launches += bool(kids)
 
 
 worklog_phase.launches = 0
+worklog_phase.open_launches = 0  # of them, launches of the open instantiation
 worklog_phase.passes = 0  # passes the kernel counted, over every phase
 worklog_phase.last = {}   # the last phase's RESULT words
 
 
 def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
-                                 config: SimConfig, t_steps: int):
+                                 config: SimConfig, t_steps: int,
+                                 force_open: bool = False):
     from . import build
 
     check_kernel_args(config, table, state.device)
@@ -155,7 +176,9 @@ def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
         return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), {
             "added": 0, "removed": 0, "overflow": False, **pushes_info(0)
         }
-    bufs = phase_buffers(state, config)
+    kid_blocks = (0 if compiled(config) and not force_open
+                  else open_blocks("worklog", config, state.device))
+    bufs = phase_buffers(state, config, kid_blocks)
     worklog_phase(build.load(), state, bufs, table, config, poisson_step,
                   t_steps)
     r = dict(zip(RESULT, bufs.result.tolist()))  # the one readback
@@ -215,5 +238,16 @@ def mobility_phase_worklog_plain(state: SimState, poisson_step: int, table,
     }
 
 
+def mobility_phase_worklog_open(state: SimState, poisson_step: int, table,
+                                config: SimConfig, t_steps: int):
+    """``mobility_phase_worklog`` on a CUDA state through the open
+    instantiation at any spawn depth and round count, the compiled set's
+    too (chip_smoke.py holds the two against each other)."""
+    check_f32(state, "work-log")
+    return _mobility_phase_worklog_cuda(state, poisson_step, table, config,
+                                        t_steps, force_open=True)
+
+
 mobility_phase_worklog.self_compacting = True
+mobility_phase_worklog_open.self_compacting = True
 mobility_phase_worklog_plain.self_compacting = True

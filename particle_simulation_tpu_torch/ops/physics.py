@@ -111,7 +111,9 @@ def make_kick(integrator: str, acc, dt, b_field=None, dtype=torch.float32):
     return tuple(a * scale for a in acc)
 
 
-def leapfrog(p: Particles, dt) -> Particles:
+def leapfrog(p: Particles, dt, b_field=None) -> Particles:
+    """The reference's kick-drift-kick; a magnetic field has no part in it
+    (the JAX package's ``make_kick`` reads ``b_field`` for boris only)."""
     fdt = p.vx.dtype
     kx, ky, kz = make_kick("leapfrog", (p.ax, p.ay, p.az), dt, dtype=fdt)
     dtf, h = scalar(dt, fdt), half(dt, fdt)
@@ -160,6 +162,10 @@ def boris(p: Particles, dt, b_field=None) -> Particles:
            enumerate((p.px, p.py, p.pz))]
     return p._replace(px=pos[0], py=pos[1], pz=pos[2],
                       vx=new_v[0], vy=new_v[1], vz=new_v[2])
+
+
+# integrator name -> push, each called as (p, dt, b_field)
+INTEGRATORS = {"leapfrog": leapfrog, "boris": boris}
 
 
 def wrap_periodic(p: Particles, sim_size) -> Particles:
@@ -228,12 +234,9 @@ def update_particles(
     reverse (the child copies the moved lane, whose velocity flips) or
     isotropic (the child leaves at the lane's speed in a direction drawn
     from its own id words; the lane keeps its velocity)."""
-    if integrator == "leapfrog":
-        moved = leapfrog(p, dt)
-    elif integrator == "boris":
-        moved = boris(p, dt, b_field)
-    else:
+    if integrator not in INTEGRATORS:
         raise ValueError(f"unknown integrator {integrator!r}")
+    moved = INTEGRATORS[integrator](p, dt, b_field)
     if boundary == "periodic":
         moved = wrap_periodic(moved, sim_size)
         in_dom = active

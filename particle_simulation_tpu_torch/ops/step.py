@@ -14,6 +14,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..config import SimConfig, check_supported
+from ..cross_section import table_lookup
 from ..state import SimState
 from . import grid as grid_ops
 from . import population
@@ -32,6 +33,29 @@ def state_to_particles(state: SimState, m: int, lo: int = 0) -> Particles:
         ax=state.acc[s, 0], ay=state.acc[s, 1], az=state.acc[s, 2],
         status=state.status[s], id_hi=state.id_hi[s], id_lo=state.id_lo[s],
     )
+
+
+def particles_to_state(state: SimState, p: Particles) -> SimState:
+    """``state`` with its six tensors from a Particles bundle of its
+    capacity (the inverse of ``state_to_particles(state, capacity)``)."""
+    return state._replace(
+        pos=torch.stack([p.px, p.py, p.pz], dim=1),
+        vel=torch.stack([p.vx, p.vy, p.vz], dim=1),
+        acc=torch.stack([p.ax, p.ay, p.az], dim=1),
+        status=p.status, id_hi=p.id_hi, id_lo=p.id_lo,
+    )
+
+
+def make_table_lookup(table: torch.Tensor) -> Callable:
+    """The JAX engines' lookup closure: ``lookup(energy, u=None,
+    bits=None)`` -> the (split, remove) chances of each energy's bucket
+    (``cross_section.table_lookup``); ``u`` and ``bits`` go unused, as
+    there."""
+
+    def lookup(energy, u=None, bits=None):
+        return table_lookup(table, energy)
+
+    return lookup
 
 
 def active_mask(status: torch.Tensor, t: int) -> torch.Tensor:
@@ -63,27 +87,34 @@ def grid_phase(state: SimState, config: SimConfig) -> SimState:
             pos, weight, config.cell_size, config.grid_size, e,
             subgrid=config.bbox_subgrid,
         )
-    elif config.field_model == "fft":
-        grid_ops.field_counts.note("fft")
-        charge = grid_ops.deposit(pos, weight, config.cell_size,
-                                  config.grid_size)
-        a = gather_acceleration_fft(charge, pos, weight, config.cell_size,
-                                    config.grid_size)
-    elif pos.dtype == torch.float64:
-        grid_ops.field_counts.note("f64")
-        charge = grid_ops.deposit(pos, weight, config.cell_size,
-                                  config.grid_size)
-        a = grid_ops.gather_acceleration(charge, pos, weight, config.cell_size,
-                                         config.grid_size, e)
     else:
-        grid_ops.field_counts.note("full")
+        grid_ops.field_counts.note(
+            "fft" if config.field_model == "fft"
+            else "f64" if pos.dtype == torch.float64 else "full")
         charge = grid_ops.deposit(pos, weight, config.cell_size,
                                   config.grid_size)
-        a = grid_ops.gather_acceleration_packdiff(
-            charge, pos, weight, config.cell_size, config.grid_size, e)
+        a = field_acceleration(charge, pos, weight, config)
     acc = torch.zeros_like(state.acc)
     acc[:m] = a
     return state._replace(acc=acc)
+
+
+def field_acceleration(charge, pos, weight, config: SimConfig):
+    """The field at each particle from the full grid's charge counts, by
+    the configured model (the JAX package's dispatch): the spectral solve
+    under ``field_model="fft"``; under the neighbour model the float64
+    gather for float64 positions, else the packed diffs."""
+    if config.field_model == "fft":
+        return gather_acceleration_fft(charge, pos, weight, config.cell_size,
+                                       config.grid_size)
+    if config.field_model != "neighbour":
+        raise ValueError(f"unknown field model {config.field_model!r}")
+    e = config.electric_force_constant
+    if pos.dtype == torch.float64:
+        return grid_ops.gather_acceleration(
+            charge, pos, weight, config.cell_size, config.grid_size, e)
+    return grid_ops.gather_acceleration_packdiff(
+        charge, pos, weight, config.cell_size, config.grid_size, e)
 
 
 def mobility_step(

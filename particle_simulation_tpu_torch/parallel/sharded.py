@@ -52,10 +52,9 @@ import torch.distributed as dist
 from .. import cross_section, interop
 from ..config import SimConfig, check_supported
 from ..device import resolve
-from ..models.poisson_fft import gather_acceleration_fft
 from ..ops import grid as grid_ops
 from ..ops import population
-from ..ops.step import mobility_step
+from ..ops.step import field_acceleration, mobility_step
 from ..runtime import RunData, StepMetrics
 from ..state import SimState, setup_particles, zero_state
 
@@ -267,16 +266,7 @@ def _replicated_field(pos, weight, config: SimConfig, mesh: Mesh, path: str):
     grid_ops.field_counts.note(path)
     charge = grid_ops.deposit(pos, weight, config.cell_size, config.grid_size)
     mesh.all_reduce(charge, tag="charge")
-    if config.field_model == "fft":
-        return gather_acceleration_fft(charge, pos, weight, config.cell_size,
-                                       config.grid_size)
-    if pos.dtype == torch.float64:
-        return grid_ops.gather_acceleration(
-            charge, pos, weight, config.cell_size, config.grid_size,
-            config.electric_force_constant)
-    return grid_ops.gather_acceleration_packdiff(
-        charge, pos, weight, config.cell_size, config.grid_size,
-        config.electric_force_constant)
+    return field_acceleration(charge, pos, weight, config)
 
 
 def _slab_field(idx, weight, origin, config: SimConfig, mesh: Mesh):

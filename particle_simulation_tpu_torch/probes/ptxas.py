@@ -6,7 +6,9 @@ Each engine (``worklog_phase``, ``staged_phase``) is instantiated per spawn
 depth (1-4), Threefry rounds (13, 20) and draw protocol (block2 or not),
 and, where the checkout has it, per model path (``reference``: leapfrog,
 absorbing box, reverse collisions; ``general``: the model menu read at run
-time).  A checkout without the model switch reports its instantiations as
+time); the open instantiation (template depth 0, printed "open"), where
+the checkout has it, reads the spawn depth and the rounds at run time.  A
+checkout without the model switch reports its instantiations as
 ``reference``.  ``--tree`` may name another checkout (a ``git archive`` of
 an earlier commit): its package is imported in place of this one and
 builds its own kernels.  Run it as a file, so that ``--tree`` decides which
@@ -90,8 +92,10 @@ def format_lines(build_log: str) -> List[str]:
     entries = entry_resources(build_log)
     phases = sorted(((phase_key(n), r) for n, r in entries.items()
                      if phase_key(n) is not None), key=lambda kr: kr[0])
-    lines = [f"{e} {path:9s} depth {d} rounds {r} block2 {int(b)}: "
-             f"{_describe(res)}" for (e, d, r, b, path), res in phases]
+    lines = [f"{e} {path:9s} "
+             f"{f'depth {d} rounds {r}' if d else 'depth and rounds open'} "
+             f"block2 {int(b)}: {_describe(res)}"
+             for (e, d, r, b, path), res in phases]
     lines += [f"{n}: {_describe(res)}" for n, res in sorted(entries.items())
               if phase_key(n) is None]
     return lines

@@ -17,7 +17,13 @@ kernels.  Run it as a file, so that ``--tree`` decides which package
 loads:
 
     python particle_simulation_tpu_torch/probes/step_times.py \\
-        [--tree DIR] [--steps 3] [--schedulers dynamic_old,dynamic]
+        [--tree DIR] [--steps 3] [--schedulers dynamic_old,dynamic] \\
+        [--spawn-depth 2] [--rng-rounds 13] [--open]
+
+``--spawn-depth`` and ``--rng-rounds`` outside the engines' compiled set
+(depth 1-4, rounds 13 and 20) run their open instantiations; ``--open``
+runs those at any pair (``mobility_phase_worklog_open`` and
+``mobility_phase_dynamic_open``, in checkouts that have them).
 
 To compare two trees, run them in turns in one call (parent, change,
 change, parent): one card, one power limit.
@@ -34,8 +40,17 @@ MAIN = dict(init_n=1_000_000, capacity=2_000_000, poisson_timestep=100,
             grid_size=(256, 256, 256))
 
 
-def run(tree: str, schedulers, steps: int) -> None:
+OPEN_PHASES = {
+    "dynamic": ("ops.kernels.worklog", "mobility_phase_worklog_open"),
+    "dynamic_old": ("ops.kernels.push_mcc", "mobility_phase_dynamic_open"),
+}
+
+
+def run(tree: str, schedulers, steps: int, depth: int = 2, rounds: int = 13,
+        force_open: bool = False) -> None:
     sys.path.insert(0, os.path.abspath(tree))
+    import importlib
+
     import torch
 
     from particle_simulation_tpu_torch import SimConfig, cross_section
@@ -54,8 +69,13 @@ def run(tree: str, schedulers, steps: int) -> None:
                 f"{sorted(ms)[len(ms) // 2]:.3f}")
 
     for scheduler in schedulers:
-        cfg = SimConfig(**MAIN, scheduler=scheduler)
+        cfg = SimConfig(**MAIN, scheduler=scheduler, spawn_depth=depth,
+                        rng_rounds=rounds)
         fn = get_mobility_phase(scheduler)
+        if force_open:
+            module, name = OPEN_PHASES[scheduler]
+            fn = getattr(importlib.import_module(
+                f"particle_simulation_tpu_torch.{module}"), name)
         phase_ms = []
 
         def phase(*args):
@@ -79,7 +99,10 @@ def run(tree: str, schedulers, steps: int) -> None:
             st, m = poisson_step(st, s, table, cfg, phase=phase)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"{os.path.abspath(tree)} {scheduler}: steps 1-{steps} ms "
+        variant = (f" spawn_depth={depth} rng_rounds={rounds}"
+                   + (" open" if force_open else ""))
+        print(f"{os.path.abspath(tree)} {scheduler}{variant}: steps "
+              f"1-{steps} ms "
               f"{stats(ms)}; mobility phase ms {stats(phase_ms)}; final "
               f"n={st.n}", flush=True)
 
@@ -93,8 +116,13 @@ def main(argv=None) -> int:
                     help="timed Poisson steps after the warm one")
     ap.add_argument("--schedulers", default="dynamic_old,dynamic",
                     help="comma-separated schedulers, each from the seed")
+    ap.add_argument("--spawn-depth", type=int, default=2)
+    ap.add_argument("--rng-rounds", type=int, default=13)
+    ap.add_argument("--open", action="store_true",
+                    help="the engines' open instantiations at any pair")
     args = ap.parse_args(argv)
-    run(args.tree, args.schedulers.split(","), args.steps)
+    run(args.tree, args.schedulers.split(","), args.steps, args.spawn_depth,
+        args.rng_rounds, args.open)
     return 0
 
 

@@ -100,6 +100,14 @@ def step_draws(seed, id_hi, id_lo, poisson_step, mob_step, lo=0.0, hi=1.0,
     return uniform_from_bits(b0, lo, hi), b1, b0 ^ GOLDEN
 
 
+def step_uniform(seed, id_hi, id_lo, poisson_step, mob_step, lo=0.0, hi=1.0,
+                 rounds: int = 20):
+    """The collision uniform of ``step_draws`` alone."""
+    return step_draws(
+        seed, id_hi, id_lo, poisson_step, mob_step, lo, hi, rounds=rounds
+    )[0]
+
+
 def pair_draws(seed, id_hi, id_lo, poisson_step, t_even, lo=0.0, hi=1.0,
                rounds: int = 20):
     """``rng_mode="block2"``: one block serves steps (t_even, t_even + 1).
@@ -145,8 +153,6 @@ def setup_uniform(id_hi, id_lo, axis, lo, hi):
     src/particle_move.cu:12-15)."""
     b0, _ = threefry2x32(id_hi, id_lo, SETUP_CTR, axis)
     return uniform_from_bits(b0, lo, hi)
-
-
 
 
 def setup_gaussian(id_hi, id_lo, axis) -> torch.Tensor:

@@ -127,13 +127,20 @@ def test_done_log_overflow_is_flagged(dev):
     assert bool((out.status == -1).all())
 
 
-@pytest.mark.parametrize("bad", [dict(spawn_depth=5), dict(rng_rounds=12)])
-def test_unbuilt_variants_raise(dev, bad):
-    cfg = SimConfig(**CHURN, **bad)
+@pytest.mark.parametrize("model", ["reference", "general"])
+@pytest.mark.parametrize("rounds", [5, 12, 24])
+@pytest.mark.parametrize("depth", [5, 6, 8, 16])
+def test_open_variants_match_plain(dev, depth, rounds, model):
+    """Outside the compiled set (depth 1..4, rounds 13 and 20) the open
+    instantiation runs, one launch a phase, equal to the plain version."""
+    models = MAGNETIZED_ARGON if model == "general" else {}
+    cfg = SimConfig(**CHURN, **models, spawn_depth=depth, rng_rounds=rounds)
+    assert not pm.compiled(cfg) and (pm.model_bits(cfg) != 0) == bool(models)
     table = load_table(bundled_paths()[1], dev)
-    st = grid_phase(setup_particles(cfg, device=dev), cfg)
-    with pytest.raises(ValueError):
-        mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    launches, opened = worklog_phase.launches, worklog_phase.open_launches
+    assert _compare(cfg, table, dev)["added"] > 0
+    assert worklog_phase.launches - launches == 2
+    assert worklog_phase.open_launches - opened == 2
 
 
 def test_table_on_the_wrong_device_raises(dev):

@@ -167,13 +167,32 @@ def test_appends_past_the_capacity_overflow(dev):
     assert bool((out.status[out.n:] == 0).all())
 
 
-@pytest.mark.parametrize("bad", [dict(spawn_depth=5), dict(rng_rounds=12)])
-def test_unbuilt_variants_raise(dev, bad):
-    cfg = SimConfig(**CHURN, **bad)
+MAGNETIZED_ARGON = dict(integrator="boris", b_field=(0.0, 0.0, -1.76e9),
+                        collision_model="isotropic", boundary="periodic",
+                        init_vth=2.0e6)
+
+
+@pytest.mark.parametrize("model", ["reference", "general"])
+@pytest.mark.parametrize("rounds", [5, 12, 24])
+@pytest.mark.parametrize("depth", [5, 6, 8, 16])
+def test_open_variants_match_plain(dev, depth, rounds, model):
+    """Outside the compiled set (depth 1..4, rounds 13 and 20) the open
+    instantiation runs, one launch a phase, equal to the plain version bit
+    for bit; depth 16 passes the block's 12 warps, whose look-backs the
+    open instantiation takes two streams at a time."""
+    models = MAGNETIZED_ARGON if model == "general" else {}
+    cfg = SimConfig(**CHURN, **models, spawn_depth=depth, rng_rounds=rounds)
+    assert not pm.compiled(cfg) and (pm.model_bits(cfg) != 0) == bool(models)
     table = load_table(bundled_paths()[1], dev)
-    st = grid_phase(setup_particles(cfg, device=dev), cfg)
-    with pytest.raises(ValueError):
-        pm.mobility_phase_dynamic(st, 0, table, cfg, cfg.poisson_timestep)
+    st = setup_particles(cfg, device=dev)
+    launches, opened = pm.staged_phase.launches, pm.staged_phase.open_launches
+    added = 0
+    for s in range(2):
+        st, info = _phase(cfg, table, grid_phase(st, cfg), s)
+        added += info["added"]
+    assert added > 0
+    assert pm.staged_phase.launches - launches == 2
+    assert pm.staged_phase.open_launches - opened == 2
 
 
 def test_table_on_the_wrong_device_raises(dev):
