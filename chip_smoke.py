@@ -184,7 +184,8 @@ Phases, each printing one line or a few:
    (d) the main path's phases (1M electrons, capacity 2M, 256^3, T=100),
        1 warm and 3 timed steps each: the compiled (2, 13), the open
        symbol at (2, 13) (the same final multiset) and the open variant at
-       (6, 12), whose step 1 the plain version also runs (equal info).
+       (6, 12), whose step 1 the plain version also runs (equal particles
+       and info).
    Its results are the open variants' entries of the kernels' line.
 
 Any failed check raises, so the script exits non-zero.  The last line is
@@ -212,10 +213,26 @@ import os
 import sys
 import time
 
-# operations a lane-step of the engines does (csrc/physics.cuh and
-# threefry.cuh, counted with an FMA as two and logf as one; the 13-round
-# Threefry block is shared by two steps under block2): the bound's count
-OPS_PER_PUSH = 70
+# operations of the bound's count (csrc/physics.cuh and threefry.cuh, an
+# FMA counted as two and logf as one): a lane-step's moves, lookup and
+# draw outside the cipher (44: the main path's count of 70 a push less its
+# share of the 13-round block), and a Threefry block of R rounds, 3 a round
+# (add, rotate, xor), 3 a key injection every 4 rounds and 4 to set up the
+# key schedule and the first injection
+LANE_STEP_OPS = 44
+THREEFRY_ROUND_OPS, THREEFRY_INJECTION_OPS, THREEFRY_SETUP_OPS = 3, 3, 4
+
+
+def ops_per_push(rounds: int, block2: bool) -> float:
+    """Operations a lane-step of the reference engines does at ``rounds``
+    Threefry rounds; under block2 two steps share a block."""
+    block = (THREEFRY_ROUND_OPS * rounds
+             + THREEFRY_INJECTION_OPS * (rounds // 4) + THREEFRY_SETUP_OPS)
+    return LANE_STEP_OPS + block / (2 if block2 else 1)
+
+
+# the main path's and the model slice's: 13 rounds under block2, 70
+OPS_PER_PUSH = ops_per_push(13, block2=True)
 RECORD_BYTES = 48    # a particle: pos, vel, acc (3 x 12) + status, id_hi, id_lo
 FIELD_OPS = 10       # a particle of the field gather: unpack, scale, mask
 MAIN = dict(init_n=1_000_000, capacity=2_000_000, poisson_timestep=100,
@@ -1460,6 +1477,7 @@ def open_on_card(dev) -> dict:
     from particle_simulation_tpu_torch.probes.common import (
         bound_ms, bound_terms,
     )
+    from particle_simulation_tpu_torch.probes.step_times import open_phase
     from particle_simulation_tpu_torch.runtime import (
         multiset_with_ids, run_pic, sorted_particle_array,
     )
@@ -1468,14 +1486,15 @@ def open_on_card(dev) -> dict:
     t_phase = time.perf_counter()
     sine = cross_section.load_table(cross_section.bundled_paths()[0], dev)
     const = cross_section.load_table(cross_section.bundled_paths()[1], dev)
+
     # name -> (wrapper, phase, phase through the open symbol, plain phase,
     # scheduler)
     engines = {
         "worklog_phase": (wl.worklog_phase, wl.mobility_phase_worklog,
-                          wl.mobility_phase_worklog_open,
+                          open_phase("dynamic"),
                           wl.mobility_phase_worklog_plain, "dynamic"),
         "staged_phase": (pm.staged_phase, pm.mobility_phase_dynamic,
-                         pm.mobility_phase_dynamic_open,
+                         open_phase("dynamic_old"),
                          pm.mobility_phase_dynamic_plain, "dynamic_old"),
     }
     keys = ("added", "removed", "overflow", "pushes_lo", "pushes_hi")
@@ -1624,17 +1643,21 @@ def open_on_card(dev) -> dict:
         (k, ki), _ = timed(phase, g, 1, sine, open_cfg,
                            open_cfg.poisson_timestep)
         check(ki == pi, f"13d {name} {OPEN_TIMED} step 1: {ki} vs plain {pi}")
+        check(np.array_equal(multiset_with_ids(k), multiset_with_ids(p)),
+              f"13d {name} {OPEN_TIMED} step 1: the particles differ from "
+              "plain")
         rec = ms[f"open {OPEN_TIMED}"]
         times = [r[0] for r in rec]
         n_bytes = sum(RECORD_BYTES * (r[1] + r[2])
                       + cross_section.N_STEPS * 8 for r in rec) / 3
-        n_ops = sum(OPS_PER_PUSH * r[3] for r in rec) / 3
+        n_ops = sum(ops_per_push(rounds, open_cfg.rng_mode == "block2")
+                    * r[3] for r in rec) / 3
         by_bytes, by_ops = bound_terms(n_bytes, n_ops)
         bound, by = bound_ms(n_bytes, n_ops)
         log(f"bound {name}_open: {n_bytes:.6g} B -> {by_bytes:.4f} ms, "
             f"{n_ops:.6g} operations -> {by_ops:.4f} ms; {by} set it")
         log(f"13d {name}: plain at {OPEN_TIMED} step 1 {p_ms:.2f} ms, equal "
-            "info")
+            "particles and info")
         mean = lambda label: sum(r[0] for r in ms[label]) / 3
         out[name].update({
             "max_abs_err": max_err[name],
@@ -1751,12 +1774,14 @@ def main() -> int:
         check(not kc["overflow"], f"{tag}: overflow")
         return kc
 
-    def phase_work(n_in, n_out, pushes):
+    def phase_work(cfg, n_in, n_out, pushes):
         """(bytes, operations) of a mobility phase: its population in and
-        out once, the table once, OPS_PER_PUSH a lane-step."""
+        out once, the table once, ``ops_per_push`` at cfg's rounds a
+        lane-step."""
         table_bytes = cross_section.N_STEPS * 8
+        per_push = ops_per_push(cfg.rng_rounds, cfg.rng_mode == "block2")
         return (RECORD_BYTES * (n_in + n_out) + table_bytes,
-                OPS_PER_PUSH * pushes)
+                per_push * pushes)
 
     def kernel_vs_plain(tag, cfg, table, steps):
         """Both phases on the same grid-phase output each step; returns the
@@ -1780,7 +1805,7 @@ def main() -> int:
                 f"{mallocs[1]}) plain {pt:.2f} ms")
             k_ms.append(kt)
             p_ms.append(pt)
-            work.append(phase_work(st.n, c["n"], pushes))
+            work.append(phase_work(cfg, st.n, c["n"], pushes))
             st = k_out[0]
         return k_ms, p_ms, work
 
@@ -1880,7 +1905,7 @@ def main() -> int:
         if s:
             staged_k_ms.append(k_ms)
             staged_work.append(phase_work(
-                st.n, m["n"], m["pushes_lo"] + (m["pushes_hi"] << 30)))
+                old_cfg, st.n, m["n"], m["pushes_lo"] + (m["pushes_hi"] << 30)))
         log(line)
         st = a[0]
     # as 4b: steps 1-3, the mean is the line's number, the median beside it

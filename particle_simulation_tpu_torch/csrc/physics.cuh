@@ -156,8 +156,9 @@ PST_HD void isotropic_velocity(float wx, float wy, float wz,
 }
 
 // The spawn depth and Threefry rounds of a lane's steps, and where its
-// children go.  FixedLimits: both known at compile time, the children in
-// the caller's array (registers), the instantiations of the compiled set.
+// children go (store) and come back from (child, below slots()).
+// FixedLimits: both known at compile time, the children in the caller's
+// array (registers), the instantiations of the compiled set.
 template <int D, int ROUNDS>
 struct FixedLimits {
   Child (&children)[D];
@@ -175,6 +176,10 @@ struct FixedLimits {
       if (d == depth) children[d] = c;
     }
   }
+
+  PST_HD int slots() const { return D; }
+
+  PST_HD const Child& child(int d) const { return children[d]; }
 };
 
 // OpenLimits: both read at run time (the engines' open instantiations);
@@ -194,6 +199,10 @@ struct OpenLimits {
   }
 
   PST_HD void store(int d, const Child& c) const { children[d * stride] = c; }
+
+  PST_HD int slots() const { return depth; }
+
+  PST_HD Child child(int d) const { return children[d * stride]; }
 };
 
 // Runs lane L (an unfinished record) through steps start..t_steps and

@@ -8,7 +8,7 @@
 // A phase is a fixed point over passes.  Pass 1 sweeps the caller's
 // SimState (pos, vel, acc as (C, 3) float32, status, id_hi, id_lo), every
 // later pass the work log the pass before it wrote.  Each pass runs every
-// unfinished record through its mobility steps (physics.cuh advance_lane)
+// unfinished record through its mobility steps (physics.cuh lane_steps)
 // and emits, in source order,
 //   * a finished record, status reset to ALIVE, to the done log after the
 //     records already there.  The done log is the output SimState's own
@@ -57,7 +57,7 @@
 //     blocks of kTile = 384 threads fit an SM (768 threads).
 //
 // The model menu (ops/physics.py: boris with or without a field, the
-// periodic box, isotropic children; physics.cuh advance_lane).  Each
+// periodic box, isotropic children; physics.cuh lane_steps).  Each
 // kernel is instantiated twice per (depth, rounds, block2): the reference
 // instantiation, the main path's code as it was, and the general one,
 // which reads PhysConsts::model at run time (the same for every lane, so
@@ -222,6 +222,28 @@ __device__ __forceinline__ void store_done(const PhaseArgs& a, long long j,
   a.out_id_lo[j] = static_cast<int32_t>(r.id_lo);
 }
 
+// D = kOpen is the open instantiation: spawn depth and rounds from the
+// arguments (ROUNDS is unused), the children in the scratch.  Its bound is
+// every instantiation's: ptxas gives each open kernel 80 registers and no
+// spill, two blocks an SM; with __launch_bounds__(kTile, 1) the reference
+// one took 112 registers and one block an SM, and its main-path phase
+// measured 12-23% slower on an H100 at 700 W (PERF.md section 6).
+constexpr int kOpen = 0;
+
+// Where a lane's children go (physics.cuh): the compiled set's to
+// ``regs``, the open instantiation's to the thread's slices of the scratch.
+template <int D, int ROUNDS>
+__device__ __forceinline__ auto tile_limits(
+    const PhaseArgs& a, Child (&regs)[D == kOpen ? 1 : D]) {
+  if constexpr (D == kOpen) {
+    return OpenLimits{a.kids + blockIdx.x * kTile + threadIdx.x,
+                      static_cast<long long>(gridDim.x) * kTile, a.depth,
+                      a.rounds};
+  } else {
+    return FixedLimits<D, ROUNDS>{regs};
+  }
+}
+
 // One tile of one pass: sweep, rank, look back, emit.  ``src`` is null in
 // pass 1 (the source is the caller's state).  Adds the thread's pushes and
 // children to its running sums.
@@ -235,15 +257,16 @@ __device__ __forceinline__ void sweep_tile(
   extern __shared__ float2 table_rows[];  // the phase's copy of the table
   const int i = tile * kTile + threadIdx.x;
   Lane L;
-  Child kids[D];
+  Child regs[D == kOpen ? 1 : D];
+  const auto kids = tile_limits<D, ROUNDS>(a, regs);
   int n_kids = 0;
   bool done = false;
   bool suspended = false;
   if (i < n_src) {
     L = src ? load_work(src, a.work_cap, i) : load_state(a, i);
     if (is_unfinished(L.status)) {
-      pushes += advance_lane<D, ROUNDS, BLOCK2, GENERAL>(
-          L, kids, n_kids, SharedTable{table_rows}, a.k);
+      pushes += lane_steps<BLOCK2, GENERAL>(L, kids, n_kids,
+                                            SharedTable{table_rows}, a.k);
       children += n_kids;
       done = L.status == kStatusAlive || L.status > 0;
       suspended = is_suspended(L.status);
@@ -270,9 +293,9 @@ __device__ __forceinline__ void sweep_tile(
     ++ow;
   }
 #pragma unroll
-  for (int d = 0; d < D; ++d, ++ow) {
+  for (int d = 0; d < kids.slots(); ++d, ++ow) {
     if (d < n_kids && ow < a.work_cap) {
-      const Child& c = kids[d];
+      const Child& c = kids.child(d);
       Lane r = L;
       r.px = c.px;
       r.py = c.py;
@@ -288,70 +311,6 @@ __device__ __forceinline__ void sweep_tile(
   }
 }
 
-// sweep_tile for the open instantiation: the lane's children go to its
-// slices of the scratch and come back from there for the emission.
-template <bool BLOCK2, bool GENERAL>
-__device__ __forceinline__ void sweep_tile_open(
-    const PhaseArgs& a, int tile, int n_src, const int32_t* src,
-    int32_t* dst, unsigned long long* done_words,
-    unsigned long long* work_words, long long n_done, long long& pushes,
-    long long& children) {
-  __shared__ unsigned int base[2];  // the tile's done and work offsets
-  extern __shared__ float2 table_rows[];
-  const int i = tile * kTile + threadIdx.x;
-  const long long threads = static_cast<long long>(gridDim.x) * kTile;
-  const OpenLimits kids{a.kids + blockIdx.x * kTile + threadIdx.x, threads,
-                        a.depth, a.rounds};
-  Lane L;
-  int n_kids = 0;
-  bool done = false;
-  bool suspended = false;
-  if (i < n_src) {
-    L = src ? load_work(src, a.work_cap, i) : load_state(a, i);
-    if (is_unfinished(L.status)) {
-      pushes += advance_lane<BLOCK2, GENERAL>(L, kids, n_kids,
-                                              SharedTable{table_rows}, a.k);
-      children += n_kids;
-      done = L.status == kStatusAlive || L.status > 0;
-      suspended = is_suspended(L.status);
-    }
-  }
-  const int n_work = (suspended ? 1 : 0) + n_kids;
-  int ex_d, ex_w, tot_d, tot_w;
-  block_scan2<kTile>(done ? 1 : 0, n_work, ex_d, ex_w, tot_d, tot_w);
-  const int warp = threadIdx.x >> 5;
-  if (warp < 2) {
-    const unsigned int e = lookback_exclusive(
-        warp == 0 ? done_words : work_words, tile,
-        static_cast<unsigned int>(warp == 0 ? tot_d : tot_w));
-    if ((threadIdx.x & 31) == 0) base[warp] = e;
-  }
-  __syncthreads();
-  if (done) {
-    const long long od = n_done + base[0] + ex_d;
-    if (od < a.cap) store_done(a, od, L);
-  }
-  long long ow = static_cast<long long>(base[1]) + ex_w;
-  if (suspended) {
-    if (ow < a.work_cap) store_work(dst, a.work_cap, ow, L);
-    ++ow;
-  }
-  for (int d = 0; d < n_kids && ow < a.work_cap; ++d, ++ow) {
-    const Child c = kids.children[d * threads];
-    Lane r = L;
-    r.px = c.px;
-    r.py = c.py;
-    r.pz = c.pz;
-    r.vx = c.vx;
-    r.vy = c.vy;
-    r.vz = c.vz;
-    r.status = c.stamp;
-    r.id_hi = c.id_hi;
-    r.id_lo = c.id_lo;
-    store_work(dst, a.work_cap, ow, r);
-  }
-}
-
 __device__ __forceinline__ long long warp_sum(long long v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -359,15 +318,6 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   }
   return v;
 }
-
-// D = kOpen is the open instantiation: spawn depth and rounds from the
-// arguments (ROUNDS is unused), the children in the scratch.  Its bound is
-// every instantiation's: ptxas gives the reference open kernel 80
-// registers and 66 bytes of spills, two blocks an SM; with
-// __launch_bounds__(kTile, 1) it took 112 registers and one block an SM,
-// and its main-path phase measured 12-23% slower on an H100 at 700 W
-// (PERF.md section 6).
-constexpr int kOpen = 0;
 
 template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
@@ -414,15 +364,9 @@ __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
     while (true) {
       const int tile = lookback_ticket(reinterpret_cast<unsigned int*>(region));
       if (tile >= n_tiles) break;
-      if constexpr (D == kOpen) {
-        sweep_tile_open<BLOCK2, GENERAL>(a, tile, n_src, src, dst,
-                                         done_words, work_words, n_done,
-                                         pushes, children);
-      } else {
-        sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, n_src, src, dst,
-                                               done_words, work_words,
-                                               n_done, pushes, children);
-      }
+      sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, n_src, src, dst,
+                                             done_words, work_words, n_done,
+                                             pushes, children);
     }
     grid.sync();
     // the last tile's inclusive prefixes are the pass's totals

@@ -600,19 +600,15 @@ staged_phase.reclaims = 0  # reclaims the kernel made, over every phase
 staged_phase.last = {}     # the last phase's STAGED_RESULT words
 
 
-def _mobility_phase_dynamic_cuda(state: SimState, poisson_step: int, table,
-                                 config: SimConfig, t_steps: int,
-                                 force_open: bool = False):
+def run_staged_phase(state: SimState, bufs: StagedBuffers, poisson_step: int,
+                     table, config: SimConfig, t_steps: int):
+    """One phase of a CUDA state with ``state.n_clamped > 0`` into
+    ``bufs`` (``staged_buffers``: sized with ``kid_blocks``, they run the
+    open instantiation, else the compiled one), then the one readback of the
+    result words: ``mobility_phase_dynamic``'s (state, info).  Raises
+    where the phase did not converge."""
     from . import build
 
-    _staged_checks(state, t_steps)
-    check_kernel_args(config, table, state.device)
-    if state.n_clamped == 0:
-        return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), \
-            _phase_info(0, state.n, state.capacity, 0, 0, 0, 0)
-    kid_blocks = (0 if compiled(config) and not force_open
-                  else open_blocks("staged", config, state.device))
-    bufs = staged_buffers(state, config, kid_blocks)
     staged_phase(build.load(), state, bufs, table, config, poisson_step,
                  t_steps)
     r = dict(zip(STAGED_RESULT, bufs.result.tolist()))  # the one readback
@@ -624,6 +620,19 @@ def _mobility_phase_dynamic_cuda(state: SimState, poisson_step: int, table,
     return bufs.out._replace(n=r["n_live"]), _phase_info(
         state.n_clamped, r["n"], state.capacity, r["n_live"],
         r["reclaimed"], r["pushes"], r["passes"])
+
+
+def _mobility_phase_dynamic_cuda(state: SimState, poisson_step: int, table,
+                                 config: SimConfig, t_steps: int):
+    _staged_checks(state, t_steps)
+    check_kernel_args(config, table, state.device)
+    if state.n_clamped == 0:
+        return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), \
+            _phase_info(0, state.n, state.capacity, 0, 0, 0, 0)
+    kid_blocks = (0 if compiled(config)
+                  else open_blocks("staged", config, state.device))
+    return run_staged_phase(state, staged_buffers(state, config, kid_blocks),
+                            poisson_step, table, config, t_steps)
 
 
 def mobility_phase_dynamic(state: SimState, poisson_step: int, table,
@@ -644,16 +653,5 @@ def mobility_phase_dynamic(state: SimState, poisson_step: int, table,
     )
 
 
-def mobility_phase_dynamic_open(state: SimState, poisson_step: int, table,
-                                config: SimConfig, t_steps: int):
-    """``mobility_phase_dynamic`` on a CUDA state through the open
-    instantiation at any spawn depth and round count, the compiled set's
-    too (chip_smoke.py holds the two against each other)."""
-    check_f32(state, "staged")
-    return _mobility_phase_dynamic_cuda(state, poisson_step, table, config,
-                                        t_steps, force_open=True)
-
-
 mobility_phase_dynamic.self_compacting = True
-mobility_phase_dynamic_open.self_compacting = True
 mobility_phase_dynamic_plain.self_compacting = True

@@ -165,20 +165,16 @@ worklog_phase.passes = 0  # passes the kernel counted, over every phase
 worklog_phase.last = {}   # the last phase's RESULT words
 
 
-def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
-                                 config: SimConfig, t_steps: int,
-                                 force_open: bool = False):
+def run_worklog_phase(state: SimState, bufs: PhaseBuffers, poisson_step: int,
+                      table, config: SimConfig, t_steps: int):
+    """One phase of a CUDA state with ``state.n_clamped > 0`` into
+    ``bufs`` (``phase_buffers``: sized with ``kid_blocks``, they run the
+    open instantiation, else the compiled one), then the one readback of the
+    result words: ``mobility_phase_worklog``'s (state, info).  Raises
+    where the phase did not converge."""
     from . import build
 
-    check_kernel_args(config, table, state.device)
     n0, c = state.n_clamped, state.capacity
-    if n0 == 0:
-        return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), {
-            "added": 0, "removed": 0, "overflow": False, **pushes_info(0)
-        }
-    kid_blocks = (0 if compiled(config) and not force_open
-                  else open_blocks("worklog", config, state.device))
-    bufs = phase_buffers(state, config, kid_blocks)
     worklog_phase(build.load(), state, bufs, table, config, poisson_step,
                   t_steps)
     r = dict(zip(RESULT, bufs.result.tolist()))  # the one readback
@@ -195,6 +191,19 @@ def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
         "overflow": bool(r["overflow"]) or r["n_done"] > c,
         **pushes_info(r["pushes"]),
     }
+
+
+def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
+                                 config: SimConfig, t_steps: int):
+    check_kernel_args(config, table, state.device)
+    if state.n_clamped == 0:
+        return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), {
+            "added": 0, "removed": 0, "overflow": False, **pushes_info(0)
+        }
+    kid_blocks = (0 if compiled(config)
+                  else open_blocks("worklog", config, state.device))
+    return run_worklog_phase(state, phase_buffers(state, config, kid_blocks),
+                             poisson_step, table, config, t_steps)
 
 
 def mobility_phase_worklog(state: SimState, poisson_step: int, table,
@@ -238,16 +247,5 @@ def mobility_phase_worklog_plain(state: SimState, poisson_step: int, table,
     }
 
 
-def mobility_phase_worklog_open(state: SimState, poisson_step: int, table,
-                                config: SimConfig, t_steps: int):
-    """``mobility_phase_worklog`` on a CUDA state through the open
-    instantiation at any spawn depth and round count, the compiled set's
-    too (chip_smoke.py holds the two against each other)."""
-    check_f32(state, "work-log")
-    return _mobility_phase_worklog_cuda(state, poisson_step, table, config,
-                                        t_steps, force_open=True)
-
-
 mobility_phase_worklog.self_compacting = True
-mobility_phase_worklog_open.self_compacting = True
 mobility_phase_worklog_plain.self_compacting = True

@@ -22,8 +22,9 @@ loads:
 
 ``--spawn-depth`` and ``--rng-rounds`` outside the engines' compiled set
 (depth 1-4, rounds 13 and 20) run their open instantiations; ``--open``
-runs those at any pair (``mobility_phase_worklog_open`` and
-``mobility_phase_dynamic_open``, in checkouts that have them).
+runs those at any pair (each phase on buffers sized for the open grid,
+``run_worklog_phase`` and ``run_staged_phase``, in checkouts that have
+them).
 
 To compare two trees, run them in turns in one call (parent, change,
 change, parent): one card, one power limit.
@@ -40,17 +41,37 @@ MAIN = dict(init_n=1_000_000, capacity=2_000_000, poisson_timestep=100,
             grid_size=(256, 256, 256))
 
 
+# scheduler -> (module, phase on given buffers, their allocator, engine)
 OPEN_PHASES = {
-    "dynamic": ("ops.kernels.worklog", "mobility_phase_worklog_open"),
-    "dynamic_old": ("ops.kernels.push_mcc", "mobility_phase_dynamic_open"),
+    "dynamic": ("worklog", "run_worklog_phase", "phase_buffers", "worklog"),
+    "dynamic_old": ("push_mcc", "run_staged_phase", "staged_buffers",
+                    "staged"),
 }
+
+
+def open_phase(scheduler: str):
+    """The scheduler's engine phase through its open instantiation at any
+    (depth, rounds): the buffers sized for the open grid."""
+    import importlib
+
+    module, run, buffers, engine = OPEN_PHASES[scheduler]
+    mod = importlib.import_module(
+        f"particle_simulation_tpu_torch.ops.kernels.{module}")
+    pm = importlib.import_module(
+        "particle_simulation_tpu_torch.ops.kernels.push_mcc")
+
+    def phase(state, step, table, cfg, t_steps):
+        blocks = pm.open_blocks(engine, cfg, state.device)
+        return getattr(mod, run)(state, getattr(mod, buffers)(
+            state, cfg, blocks), step, table, cfg, t_steps)
+
+    phase.self_compacting = True
+    return phase
 
 
 def run(tree: str, schedulers, steps: int, depth: int = 2, rounds: int = 13,
         force_open: bool = False) -> None:
     sys.path.insert(0, os.path.abspath(tree))
-    import importlib
-
     import torch
 
     from particle_simulation_tpu_torch import SimConfig, cross_section
@@ -71,11 +92,8 @@ def run(tree: str, schedulers, steps: int, depth: int = 2, rounds: int = 13,
     for scheduler in schedulers:
         cfg = SimConfig(**MAIN, scheduler=scheduler, spawn_depth=depth,
                         rng_rounds=rounds)
-        fn = get_mobility_phase(scheduler)
-        if force_open:
-            module, name = OPEN_PHASES[scheduler]
-            fn = getattr(importlib.import_module(
-                f"particle_simulation_tpu_torch.{module}"), name)
+        fn = open_phase(scheduler) if force_open else get_mobility_phase(
+            scheduler)
         phase_ms = []
 
         def phase(*args):

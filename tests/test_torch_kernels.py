@@ -17,7 +17,8 @@ from particle_simulation_tpu_torch.cross_section import bundled_paths, load_tabl
 from particle_simulation_tpu_torch.ops.kernels import build
 from particle_simulation_tpu_torch.ops.kernels import push_mcc as pm
 from particle_simulation_tpu_torch.ops.kernels.worklog import (
-    mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
+    mobility_phase_worklog, mobility_phase_worklog_plain, phase_buffers,
+    run_worklog_phase, worklog_phase,
 )
 from particle_simulation_tpu_torch.ops.step import grid_phase
 from particle_simulation_tpu_torch.runtime import multiset_with_ids
@@ -106,22 +107,56 @@ def test_input_state_is_not_written(dev):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
-def test_work_log_overflow_is_flagged(dev):
-    cfg = SimConfig(**CHURN, worklog_rows=1)
+# the overflow tests' kernels: the compiled instantiation, the open one at
+# the same pair and the open one at a spawn depth outside the compiled set
+# (13 rounds: the draws, and so the const churn's 3,078 survivors, do not
+# depend on the depth)
+OVERFLOW_VARIANTS = {"compiled": (2, 13, False), "open": (2, 13, True),
+                     "open_depth6": (6, 13, True)}
+
+
+def _overflow_phase(cfg, table, st, opened):
+    """The phase through the compiled or the open instantiation; the open
+    one at (2, 13) equal to the compiled one, bit for bit, past the
+    overflow too."""
+    if not opened:
+        return mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    opened_before = worklog_phase.open_launches
+    bufs = phase_buffers(st, cfg, pm.open_blocks("worklog", cfg, st.device))
+    out, info = run_worklog_phase(st, bufs, 0, table, cfg,
+                                  cfg.poisson_timestep)
+    assert worklog_phase.open_launches - opened_before == 1
+    if pm.compiled(cfg):
+        ref, ref_info = mobility_phase_worklog(st, 0, table, cfg,
+                                               cfg.poisson_timestep)
+        assert ref_info == info and ref.n == out.n
+        for x, y in zip(ref[:6], out[:6]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    return out, info
+
+
+@pytest.mark.parametrize("variant", list(OVERFLOW_VARIANTS))
+def test_work_log_overflow_is_flagged(dev, variant):
+    depth, rounds, opened = OVERFLOW_VARIANTS[variant]
+    cfg = SimConfig(**CHURN, worklog_rows=1, spawn_depth=depth,
+                    rng_rounds=rounds)
     table = load_table(bundled_paths()[1], dev)
     st = grid_phase(setup_particles(cfg, device=dev), cfg)
-    out, info = mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    out, info = _overflow_phase(cfg, table, st, opened)
     assert info["overflow"] and out.n <= cfg.capacity
 
 
-def test_done_log_overflow_is_flagged(dev):
+@pytest.mark.parametrize("variant", list(OVERFLOW_VARIANTS))
+def test_done_log_overflow_is_flagged(dev, variant):
     """3,000 electrons of the const churn end the phase 3,078 strong (the
     plain version at a larger capacity): the done log passes a capacity of
     3,000 while the work logs (512 rows of 128) hold every pass."""
-    cfg = SimConfig(**dict(CHURN, capacity=3000), worklog_rows=512)
+    depth, rounds, opened = OVERFLOW_VARIANTS[variant]
+    cfg = SimConfig(**dict(CHURN, capacity=3000), worklog_rows=512,
+                    spawn_depth=depth, rng_rounds=rounds)
     table = load_table(bundled_paths()[1], dev)
     st = grid_phase(setup_particles(cfg, device=dev), cfg)
-    out, info = mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
+    out, info = _overflow_phase(cfg, table, st, opened)
     assert info["overflow"] and out.n == cfg.capacity
     assert info["removed"] == cfg.init_n + info["added"] - cfg.capacity
     assert bool((out.status == -1).all())

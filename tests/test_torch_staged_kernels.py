@@ -45,9 +45,19 @@ def _same_bits(a, b):
         for x, y in zip(a[:6], b[:6]))
 
 
-def _phase(cfg, table, st, s=0):
-    """Kernel and plain phase from the same state; the kernel's output."""
-    k, ki = pm.mobility_phase_dynamic(st, s, table, cfg, cfg.poisson_timestep)
+def _phase(cfg, table, st, s=0, opened=False):
+    """Kernel and plain phase from the same state; the kernel's output.
+    ``opened``: the kernel through the open instantiation at any pair."""
+    if opened:
+        before = pm.staged_phase.open_launches
+        bufs = pm.staged_buffers(st, cfg, pm.open_blocks("staged", cfg,
+                                                         st.device))
+        k, ki = pm.run_staged_phase(st, bufs, s, table, cfg,
+                                    cfg.poisson_timestep)
+        assert pm.staged_phase.open_launches - before == 1
+    else:
+        k, ki = pm.mobility_phase_dynamic(st, s, table, cfg,
+                                          cfg.poisson_timestep)
     p, pi = pm.mobility_phase_dynamic_plain(st, s, table, cfg,
                                             cfg.poisson_timestep)
     assert ki == pi, (s, ki, pi)
@@ -151,15 +161,20 @@ def test_input_state_is_not_written(dev):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
-def test_appends_past_the_capacity_overflow(dev):
+@pytest.mark.parametrize("depth,rounds,opened", [
+    (2, 13, False), (2, 13, True), (6, 12, True),
+], ids=["compiled", "open", "open_6_12"])
+def test_appends_past_the_capacity_overflow(dev, depth, rounds, opened):
     """3,000 electrons at a capacity of 3,000: the children of the first
     pass pass the capacity even after the reclaim, so some are dropped
     (counted in n) and overflow is flagged; the output is compacted to at
-    most C rows, equal to the plain version's."""
-    cfg = SimConfig(**dict(CHURN, capacity=3000))
+    most C rows, equal to the plain version's.  The open instantiation
+    too, at the compiled pair and at a depth outside the compiled set."""
+    cfg = SimConfig(**dict(CHURN, capacity=3000), spawn_depth=depth,
+                    rng_rounds=rounds)
     table = load_table(bundled_paths()[1], dev)
     st = grid_phase(setup_particles(cfg, device=dev), cfg)
-    out, info = _phase(cfg, table, st)
+    out, info = _phase(cfg, table, st, opened=opened)
     assert info["overflow"] and 0 < out.n <= cfg.capacity
     assert info["removed"] == cfg.init_n + info["added"] - out.n
     assert pm.staged_phase.last["n"] > cfg.capacity
