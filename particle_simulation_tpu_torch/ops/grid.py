@@ -24,7 +24,10 @@ multiplied by ``float64(e_const)`` and rounded once to float32.
 Deposits are int32 ``index_add_``: integer atomics are exact, so the counts
 do not depend on the order of the adds.  Each ``lax.cond`` of the JAX path
 (the window test, the 10-bit test) is a host decision on a value read back
-once; ``field_counts`` counts the decisions and the readbacks.
+once; ``field_counts`` counts the decisions and the readbacks.  The parts
+of a field phase are spans inside ``pst.field`` (``utils.profiling.span``):
+``pst.field.window``, ``.window_readback``, ``.deposit``, ``.stencil``,
+``.fits_readback``, ``.gather`` (and ``.store``, in ``ops.step``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from .kernels.field import PACK_BIAS as _PACK_BIAS
 from .kernels.field import packed_field_gather
+from ..utils.profiling import span
 
 
 class FieldCounts:
@@ -171,22 +175,25 @@ def _field_from_diffs(dx, dy, dz, flat, weight, e_const) -> torch.Tensor:
     """(m, 3) float32 field at cells ``flat`` (-1 for a dead slot) of the
     diff grids, 0 where ``weight`` is 0: the packed gather when every
     |diff| fits 10 bits (one readback decides), else (cells, 3) rows."""
-    fits = bool(torch.stack([d.abs().amax() for d in (dx, dy, dz)]).amax()
-                <= _PACK_BIAS - 1)
+    with span("pst.field.fits_readback"):
+        fits = bool(torch.stack([d.abs().amax() for d in (dx, dy, dz)])
+                    .amax() <= _PACK_BIAS - 1)
     field_counts.readbacks += 1
-    if fits:
-        return packed_field_gather(pack_diffs(dx, dy, dz), flat, weight,
-                                   e_const)
-    field_counts.rows_fallback += 1
-    return _gather_rows(_diff_field(dx, dy, dz, e_const).reshape(-1, 3),
-                        flat, weight)
+    with span("pst.field.gather"):
+        if fits:
+            return packed_field_gather(pack_diffs(dx, dy, dz), flat, weight,
+                                       e_const)
+        field_counts.rows_fallback += 1
+        return _gather_rows(_diff_field(dx, dy, dz, e_const).reshape(-1, 3),
+                            flat, weight)
 
 
 def gather_acceleration_packdiff(charge_flat, pos, weight, cell_size,
                                  grid_size, e_const) -> torch.Tensor:
     """The full-grid field: the packed diff grid gathered once per particle
     (rows of float32 when some |diff| > 511); int32 ``weight``."""
-    dx, dy, dz = _int_diffs(charge_flat, grid_size)
+    with span("pst.field.stencil"):
+        dx, dy, dz = _int_diffs(charge_flat, grid_size)
     idx = cell_indices(pos, cell_size, grid_size)
     flat = flatten_cells(idx[:, 0], idx[:, 1], idx[:, 2], grid_size)
     return _field_from_diffs(dx, dy, dz, flat, weight, e_const)
@@ -217,7 +224,8 @@ def bbox_window(idx, weight, grid_size, subgrid: int):
 def fit_window(lo, hi, grid_size, subgrid: int):
     """(origin, fits) of the bounds ``lo``, ``hi`` ((3,) int32 tensors),
     read back to the host at once: the window test of ``bbox_window``."""
-    lo_hi = torch.cat([lo, hi]).tolist()
+    with span("pst.field.window_readback"):
+        lo_hi = torch.cat([lo, hi]).tolist()
     field_counts.readbacks += 1
     lo, hi = lo_hi[:3], lo_hi[3:]
     S = subgrid
@@ -252,7 +260,8 @@ def _subgrid_packdiff_acc(flat_sub, counts, S, e_const, weight):
     """Field values from subgrid counts: packed-diff build + one gather.
     Bit-identical to the full-grid packdiff path restricted to the bbox
     (missing neighbours are 0 either way)."""
-    dx, dy, dz = _int_diffs(counts, (S, S, S))
+    with span("pst.field.stencil"):
+        dx, dy, dz = _int_diffs(counts, (S, S, S))
     return _field_from_diffs(dx, dy, dz, flat_sub, weight, e_const)
 
 
@@ -264,14 +273,18 @@ def bbox_field_acceleration(pos, weight, cell_size, grid_size, e_const,
     S = subgrid
     if S <= 0 or (S * S * S) % 128:
         raise ValueError(f"subgrid edge {S} must be a positive multiple of 8")
-    idx = cell_indices(pos, cell_size, grid_size)
-    origin, fits = bbox_window(idx, weight, grid_size, S)
+    with span("pst.field.window"):
+        idx = cell_indices(pos, cell_size, grid_size)
+        lo, hi = live_bbox(idx, weight, grid_size)
+    origin, fits = fit_window(lo, hi, grid_size, S)
     if not fits:
         field_counts.note("window_fallback")
-        charge = deposit(pos, weight, cell_size, grid_size)
+        with span("pst.field.deposit"):
+            charge = deposit(pos, weight, cell_size, grid_size)
         return gather_acceleration_packdiff(
             charge, pos, weight, cell_size, grid_size, e_const)
     field_counts.note("subgrid")
-    flat_sub = subgrid_ids(idx, weight, origin, S)
-    counts = subgrid_deposit(flat_sub, S)
+    with span("pst.field.deposit"):
+        flat_sub = subgrid_ids(idx, weight, origin, S)
+        counts = subgrid_deposit(flat_sub, S)
     return _subgrid_packdiff_acc(flat_sub, counts, S, e_const, weight)

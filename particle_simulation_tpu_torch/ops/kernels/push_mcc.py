@@ -69,6 +69,7 @@ from ...constants import STATUS_DEAD, STATUS_EMPTY
 from ...cross_section import BUCKET_SCALE, LOG10_E, N_STEPS
 from ...schedulers import pushes_info
 from ...state import SimState
+from ...utils.profiling import span
 from .. import population
 from ..physics import (
     Particles, half, model_args, rotation, scalar, update_particles,
@@ -575,20 +576,22 @@ def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
     ])
     out = bufs.out
     kids = () if bufs.kids is None else (bufs.kids.data_ptr(), kid_blocks)
-    lib.call(
-        "pst_staged_phase_open" if kids else "pst_staged_phase",
-        state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
-        state.status.data_ptr(), state.id_hi.data_ptr(),
-        state.id_lo.data_ptr(), state.n,
-        out.pos.data_ptr(), out.vel.data_ptr(), out.acc.data_ptr(),
-        out.status.data_ptr(), out.id_hi.data_ptr(), out.id_lo.data_ptr(),
-        state.capacity, bufs.stacks.data_ptr(), bufs.stage.data_ptr(),
-        bufs.list.data_ptr(), bufs.lookback.data_ptr(),
-        (bufs.lookback.shape[1] - REGION_HEADER) // (config.spawn_depth + 1),
-        bufs.result.data_ptr(), table.data_ptr(),
-        *phys_args(config, poisson_step, t_steps), *kids,
-        torch.cuda.current_stream(state.device).cuda_stream,
-    )
+    with span("pst.mobility.launch"):
+        lib.call(
+            "pst_staged_phase_open" if kids else "pst_staged_phase",
+            state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
+            state.status.data_ptr(), state.id_hi.data_ptr(),
+            state.id_lo.data_ptr(), state.n,
+            out.pos.data_ptr(), out.vel.data_ptr(), out.acc.data_ptr(),
+            out.status.data_ptr(), out.id_hi.data_ptr(), out.id_lo.data_ptr(),
+            state.capacity, bufs.stacks.data_ptr(), bufs.stage.data_ptr(),
+            bufs.list.data_ptr(), bufs.lookback.data_ptr(),
+            (bufs.lookback.shape[1] - REGION_HEADER)
+            // (config.spawn_depth + 1),
+            bufs.result.data_ptr(), table.data_ptr(),
+            *phys_args(config, poisson_step, t_steps), *kids,
+            torch.cuda.current_stream(state.device).cuda_stream,
+        )
     staged_phase.launches += 1
     staged_phase.open_launches += bool(kids)
 
@@ -611,7 +614,9 @@ def run_staged_phase(state: SimState, bufs: StagedBuffers, poisson_step: int,
 
     staged_phase(build.load(), state, bufs, table, config, poisson_step,
                  t_steps)
-    r = dict(zip(STAGED_RESULT, bufs.result.tolist()))  # the one readback
+    with span("pst.mobility.readback"):
+        # the one readback
+        r = dict(zip(STAGED_RESULT, bufs.result.tolist()))
     staged_phase.passes += r["passes"]
     staged_phase.reclaims += r["reclaims"]
     staged_phase.last = r
@@ -631,8 +636,10 @@ def _mobility_phase_dynamic_cuda(state: SimState, poisson_step: int, table,
             _phase_info(0, state.n, state.capacity, 0, 0, 0, 0)
     kid_blocks = (0 if compiled(config)
                   else open_blocks("staged", config, state.device))
-    return run_staged_phase(state, staged_buffers(state, config, kid_blocks),
-                            poisson_step, table, config, t_steps)
+    with span("pst.mobility.alloc"):
+        bufs = staged_buffers(state, config, kid_blocks)
+    return run_staged_phase(state, bufs, poisson_step, table, config,
+                            t_steps)
 
 
 def mobility_phase_dynamic(state: SimState, poisson_step: int, table,

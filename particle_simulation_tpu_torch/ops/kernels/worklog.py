@@ -39,6 +39,7 @@ import torch
 from ...config import SimConfig
 from ...schedulers import mobility_phase_naive, pushes_info
 from ...state import SimState
+from ...utils.profiling import span
 from .. import population
 from .push_mcc import (
     CHILD_WORDS, NF, check_buffers, check_f32, check_kernel_args, compiled,
@@ -141,20 +142,21 @@ def worklog_phase(lib, state: SimState, bufs: PhaseBuffers, table,
     out = bufs.out
     kids = (() if bufs.kids is None
             else (bufs.kids.data_ptr(), _kid_blocks(bufs)))
-    lib.call(
-        "pst_worklog_phase_open" if kids else "pst_worklog_phase",
-        state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
-        state.status.data_ptr(), state.id_hi.data_ptr(),
-        state.id_lo.data_ptr(), state.n_clamped,
-        out.pos.data_ptr(), out.vel.data_ptr(), out.acc.data_ptr(),
-        out.status.data_ptr(), out.id_hi.data_ptr(), out.id_lo.data_ptr(),
-        state.capacity,
-        bufs.logs.data_ptr(), bufs.logs.shape[-1],
-        bufs.lookback.data_ptr(), (bufs.lookback.shape[1] - 1) // 2,
-        bufs.result.data_ptr(), table.data_ptr(),
-        *phys_args(config, poisson_step, t_steps), *kids,
-        torch.cuda.current_stream(state.device).cuda_stream,
-    )
+    with span("pst.mobility.launch"):
+        lib.call(
+            "pst_worklog_phase_open" if kids else "pst_worklog_phase",
+            state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
+            state.status.data_ptr(), state.id_hi.data_ptr(),
+            state.id_lo.data_ptr(), state.n_clamped,
+            out.pos.data_ptr(), out.vel.data_ptr(), out.acc.data_ptr(),
+            out.status.data_ptr(), out.id_hi.data_ptr(), out.id_lo.data_ptr(),
+            state.capacity,
+            bufs.logs.data_ptr(), bufs.logs.shape[-1],
+            bufs.lookback.data_ptr(), (bufs.lookback.shape[1] - 1) // 2,
+            bufs.result.data_ptr(), table.data_ptr(),
+            *phys_args(config, poisson_step, t_steps), *kids,
+            torch.cuda.current_stream(state.device).cuda_stream,
+        )
     worklog_phase.launches += 1
     worklog_phase.open_launches += bool(kids)
 
@@ -177,7 +179,8 @@ def run_worklog_phase(state: SimState, bufs: PhaseBuffers, poisson_step: int,
     n0, c = state.n_clamped, state.capacity
     worklog_phase(build.load(), state, bufs, table, config, poisson_step,
                   t_steps)
-    r = dict(zip(RESULT, bufs.result.tolist()))  # the one readback
+    with span("pst.mobility.readback"):
+        r = dict(zip(RESULT, bufs.result.tolist()))  # the one readback
     worklog_phase.passes += r["passes"]
     worklog_phase.last = r
     if r["stuck"]:
@@ -202,8 +205,10 @@ def _mobility_phase_worklog_cuda(state: SimState, poisson_step: int, table,
         }
     kid_blocks = (0 if compiled(config)
                   else open_blocks("worklog", config, state.device))
-    return run_worklog_phase(state, phase_buffers(state, config, kid_blocks),
-                             poisson_step, table, config, t_steps)
+    with span("pst.mobility.alloc"):
+        bufs = phase_buffers(state, config, kid_blocks)
+    return run_worklog_phase(state, bufs, poisson_step, table, config,
+                             t_steps)
 
 
 def mobility_phase_worklog(state: SimState, poisson_step: int, table,

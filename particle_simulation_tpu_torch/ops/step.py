@@ -16,6 +16,7 @@ import torch
 from ..config import SimConfig, check_supported
 from ..cross_section import table_lookup
 from ..state import SimState
+from ..utils.profiling import span
 from . import grid as grid_ops
 from . import population
 from ..models.poisson_fft import gather_acceleration_fft
@@ -76,27 +77,31 @@ def grid_phase(state: SimState, config: SimConfig) -> SimState:
     spectral solve (models/poisson_fft.py); else, under ``precision=
     "f64"``, the full-grid deposit and the float64 gather
     (``grid_ops.gather_acceleration``).  ``grid_ops.field_counts``
-    records the path taken and the readbacks (at most two a phase)."""
-    m = state.n_clamped
-    pos = state.pos[:m]
-    weight = population.is_live(state.status[:m]).to(torch.int32)
-    e = config.electric_force_constant
-    if (config.bbox_subgrid and config.field_model == "neighbour"
-            and pos.dtype == torch.float32):
-        a = grid_ops.bbox_field_acceleration(
-            pos, weight, config.cell_size, config.grid_size, e,
-            subgrid=config.bbox_subgrid,
-        )
-    else:
-        grid_ops.field_counts.note(
-            "fft" if config.field_model == "fft"
-            else "f64" if pos.dtype == torch.float64 else "full")
-        charge = grid_ops.deposit(pos, weight, config.cell_size,
-                                  config.grid_size)
-        a = field_acceleration(charge, pos, weight, config)
-    acc = torch.zeros_like(state.acc)
-    acc[:m] = a
-    return state._replace(acc=acc)
+    records the path taken and the readbacks (at most two a phase).  The
+    phase is the span ``pst.field`` (``utils.profiling.span``)."""
+    with span("pst.field"):
+        m = state.n_clamped
+        pos = state.pos[:m]
+        weight = population.is_live(state.status[:m]).to(torch.int32)
+        e = config.electric_force_constant
+        if (config.bbox_subgrid and config.field_model == "neighbour"
+                and pos.dtype == torch.float32):
+            a = grid_ops.bbox_field_acceleration(
+                pos, weight, config.cell_size, config.grid_size, e,
+                subgrid=config.bbox_subgrid,
+            )
+        else:
+            grid_ops.field_counts.note(
+                "fft" if config.field_model == "fft"
+                else "f64" if pos.dtype == torch.float64 else "full")
+            with span("pst.field.deposit"):
+                charge = grid_ops.deposit(pos, weight, config.cell_size,
+                                          config.grid_size)
+            a = field_acceleration(charge, pos, weight, config)
+        with span("pst.field.store"):
+            acc = torch.zeros_like(state.acc)
+            acc[:m] = a
+        return state._replace(acc=acc)
 
 
 def field_acceleration(charge, pos, weight, config: SimConfig):
@@ -126,7 +131,14 @@ def mobility_step(
     state, metrics).  A self-compacting phase reports added and overflow
     itself; any other is compacted here, the rows it reclaimed mid-phase
     folded back into added and removed.  ``parallel.sharded`` calls it
-    after its own field phase."""
+    after its own field phase.  The step is the span ``pst.mobility``."""
+    with span("pst.mobility"):
+        return _mobility_step(state, poisson_index, table, config, phase)
+
+
+def _mobility_step(state: SimState, poisson_index: int, table: torch.Tensor,
+                   config: SimConfig, phase: Optional[Callable]
+                   ) -> Tuple[SimState, Dict]:
     from ..schedulers import get_mobility_phase
 
     n_start = state.n_clamped

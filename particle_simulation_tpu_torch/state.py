@@ -20,6 +20,7 @@ from . import rng
 from .config import SimConfig, float_dtype
 from .constants import STATUS_ALIVE, STATUS_EMPTY
 from .device import resolve
+from .utils.profiling import span
 
 
 class SimState(NamedTuple):
@@ -76,37 +77,53 @@ def setup_particles(config: SimConfig, slot_offset: int = 0,
     if init_n > c:
         raise ValueError(f"init_n {init_n} exceeds capacity {c}")
     device = resolve(device)
+    with span("pst.setup"):
+        return _seed(config, slot_offset, device)
+
+
+def _seed(config: SimConfig, slot_offset: int, device) -> SimState:
+    """``setup_particles``' work, each part in its span."""
+    c, init_n = config.capacity, config.init_n
     fdt = float_dtype(config)
-    st = zero_state(config, device)
-    slots = (torch.arange(c, dtype=torch.int64, device=device) + slot_offset)
-    id_hi, id_lo = rng.initial_ids(config.seed, slots & rng.MASK)
+    with span("pst.setup.zero"):
+        st = zero_state(config, device)
+    with span("pst.setup.ids"):
+        slots = (torch.arange(c, dtype=torch.int64, device=device)
+                 + slot_offset)
+        id_hi, id_lo = rng.initial_ids(config.seed, slots & rng.MASK)
 
-    axes = []
-    for ax in range(3):
-        g = config.grid_size[ax]
-        # clamp the spawn box to the domain for grids below 62 cells
-        lo = max(0, g // 2 - 30) * config.cell_size
-        hi = min(g, g // 2 + 32) * config.cell_size
-        axes.append(rng.setup_uniform(id_hi, id_lo, ax, lo, hi).to(fdt))
-    pos = torch.stack(axes, dim=1)
+    with span("pst.setup.pos"):
+        axes = []
+        for ax in range(3):
+            g = config.grid_size[ax]
+            # clamp the spawn box to the domain for grids below 62 cells
+            lo = max(0, g // 2 - 30) * config.cell_size
+            hi = min(g, g // 2 + 32) * config.cell_size
+            axes.append(rng.setup_uniform(id_hi, id_lo, ax, lo, hi).to(fdt))
+        pos = torch.stack(axes, dim=1)
 
-    active = torch.arange(c, device=device) < init_n
-    zero = torch.zeros((), dtype=torch.int32, device=device)
     vel = st.vel
     if config.init_vth:
-        vth = (float(config.init_vth) if fdt == torch.float64
-               else float(np.float32(config.init_vth)))
-        vel = torch.stack([vth * rng.setup_gaussian(id_hi, id_lo, ax).to(fdt)
-                           for ax in range(3)], dim=1)
-        vel = torch.where(active[:, None], vel, torch.zeros_like(vel))
-    return st._replace(
-        pos=torch.where(active[:, None], pos, torch.zeros_like(pos)),
-        vel=vel,
-        status=torch.where(
-            active, torch.tensor(STATUS_ALIVE, dtype=torch.int32,
-                                 device=device), st.status
-        ),
-        id_hi=torch.where(active, rng.to_i32(id_hi), zero),
-        id_lo=torch.where(active, rng.to_i32(id_lo), zero),
-        n=init_n,
-    )
+        with span("pst.setup.vel"):
+            vth = (float(config.init_vth) if fdt == torch.float64
+                   else float(np.float32(config.init_vth)))
+            vel = torch.stack(
+                [vth * rng.setup_gaussian(id_hi, id_lo, ax).to(fdt)
+                 for ax in range(3)], dim=1)
+
+    with span("pst.setup.select"):
+        active = torch.arange(c, device=device) < init_n
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        if config.init_vth:
+            vel = torch.where(active[:, None], vel, torch.zeros_like(vel))
+        return st._replace(
+            pos=torch.where(active[:, None], pos, torch.zeros_like(pos)),
+            vel=vel,
+            status=torch.where(
+                active, torch.tensor(STATUS_ALIVE, dtype=torch.int32,
+                                     device=device), st.status
+            ),
+            id_hi=torch.where(active, rng.to_i32(id_hi), zero),
+            id_lo=torch.where(active, rng.to_i32(id_lo), zero),
+            n=init_n,
+        )

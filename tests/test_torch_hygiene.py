@@ -58,6 +58,7 @@ MODULES = [
     "particle_simulation_tpu_torch.probes.microbench_fieldgather",
     "particle_simulation_tpu_torch.probes.microbench_lookup",
     "particle_simulation_tpu_torch.probes.probe_times",
+    "particle_simulation_tpu_torch.probes.span_cost",
     "particle_simulation_tpu_torch.probes.ptxas",
     "particle_simulation_tpu_torch.probes.step_times",
     "particle_simulation_tpu_torch.probes.sweep_sensitivity",
