@@ -9,8 +9,8 @@ Phases, each printing one line or a few:
 1. require CUDA (there is no CPU path);
 2. the card's name and power limit (nvidia-smi);
 3. build the kernels (csrc/worklog.cu, staged.cu, field.cu, compact.cu,
-   sublane_gather.cu and lookup_bench.cu, one nvcc process each, in
-   parallel) and print the build time and each kernel's registers, stack
+   sublane_gather.cu, lookup_bench.cu and setup.cu, one nvcc process each,
+   in parallel) and print the build time and each kernel's registers, stack
    and spills (probes/ptxas.py; the engines by their template arguments,
    the reference and the general instantiations, the open ones as "depth
    and rounds open");
@@ -39,10 +39,21 @@ Phases, each printing one line or a few:
        const churn's 62-cell cube at bbox_subgrid=16) and the 10-bit
        packing (600 charges in one cell), against the full grid and the
        CPU (bitwise);
+   (g) the set-up kernel (setup_seed, csrc/setup.cu) at the benchmark's
+       row (1e6 live electrons in 5e7 slots, 512^3), float32, the thermal
+       start and float64: ``state.setup_particles`` on the card against
+       the plain twin ``state.seed_plain`` on the same card, every field
+       bit for bit; then 20 set-ups timed by CUDA events and 20 under
+       torch.profiler (the kernel's device time by its name, one launch a
+       set-up, no synchronising runtime call inside the set-up), and 3 of
+       the plain twin (its device time and its synchronising calls); the
+       count of synchronising calls is first held to a control, a readback
+       inside the same annotation;
 5. the main path: 1M electrons, capacity 2M, grid 256^3, T=100, the
    bundled sine table, scheduler dynamic, through ops.step.poisson_loop;
    1 warm and 3 timed Poisson steps (mean and median of the CUDA-event
-   time of each), with the work-log launches, the passes the kernel
+   time of each), with the set-up kernel's one launch, the work-log
+   launches, the passes the kernel
    counted and both per phase; then 3 more mobility phases, each run
    twice on the same input: once on the host clock, once under
    torch.profiler for the device's busy share of that run, the kernels it
@@ -112,7 +123,8 @@ Phases, each printing one line or a few:
        for 2 steps: exit 0, its final n equal to (b)'s.
 10. the sharded path (parallel/sharded.py, ranks started by
     parallel/launch.py), its wall time bounded by SHARDED_BUDGET_S; each
-    rank counts its own kernel launches and hands them back, and every
+    rank counts its own kernel launches and hands them back (the set-up
+    kernel's must be above 0: a rank seeds at its slot offset), and every
     rank must import nothing of JAX:
    (a) NCCL at world size 1, the main path (1M electrons, capacity 2M,
        256^3, T=100, dynamic) for 4 Poisson steps, replicated and slab
@@ -133,8 +145,8 @@ Phases, each printing one line or a few:
 11. the float64 oracle mode (``precision="f64"``: positions and
     velocities in float64 on the plain schedulers, no kernel; its field
     phase the float64 gather), its wall time bounded by F64_BUDGET_S;
-    each run with the launch counts at 0 before it, every f64 run
-    launching none:
+    each run with the launch counts at 0 before it, every run on the card
+    launching the set-up kernel once and every f64 run no other kernel:
    (a) tests/test_oracle.py's invariants on the card: with the const
        table, f32 ``dynamic`` (the kernel) and f32 ``sync`` against f64
        ``sync``: n, added and the id multiset exactly equal; with the
@@ -194,7 +206,9 @@ the kernels with their launches on their path, their times, the plain
 version's and the library call's, and the bound (the open variants as
 ``worklog_phase_open`` and ``staged_phase_open``, ``variant_of`` their
 engine, their launches those of 13c, their times 13d's at (6, 12), beside
-``ms_open_2_13`` and ``ms_compiled_2_13``): the least time the H100
+``ms_open_2_13`` and ``ms_compiled_2_13``; ``setup_seed`` with 4g's
+times at float32, ``ms_f32_vth`` and ``ms_f64`` beside them, and its
+launches in 5): the least time the H100
 could take for the same work, from the bytes each input and output must
 move once (3.35 TB/s) and the operations these inputs need (67 TFLOP/s
 float32), whichever is larger (probes/common.py); the line before that
@@ -342,6 +356,18 @@ PALLAS_CFG = dict(init_n=300, capacity=8192, poisson_steps=2,
 OPEN_TIMED = (6, 12)
 OPEN_BUDGET_S = 45.0
 
+# 4g: the benchmark's row (benchmark/configs/sine512.json): 1e6 live
+# electrons in 5e7 slots on 512^3; each variant of the set-up kernel (the
+# benchmark's float32, the thermal start, float64), its timed calls under
+# the profiler and the plain twin's
+SETUP_ROW = dict(init_n=1_000_000, capacity=50_000_000,
+                 grid_size=(512, 512, 512), seed=39587)
+SETUP_VARIANTS = {"f32": {}, "f32_vth": {"init_vth": 2e5},
+                  "f64": {"precision": "f64"}}
+SETUP_REPS, SETUP_PLAIN_REPS = 20, 3
+# the host's runtime calls that wait for the card (a name holds one)
+SYNC_CALLS = ("Synchronize", "cudaMemcpy", "cuMemcpy")
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -400,13 +426,14 @@ def entry_points(dev, repo: str) -> dict:
         packed_field_gather,
     )
     from particle_simulation_tpu_torch.ops.kernels.push_mcc import staged_phase
+    from particle_simulation_tpu_torch.ops.kernels.setup import setup_seed
     from particle_simulation_tpu_torch.ops.kernels.worklog import worklog_phase
     from particle_simulation_tpu_torch.runtime import multiset_with_ids
 
     t_phase = time.perf_counter()
     on_card = dev.type == "cuda"
     kernels = {"worklog_phase": worklog_phase, "staged_phase": staged_phase,
-               "field_gather": packed_field_gather}
+               "field_gather": packed_field_gather, "setup_seed": setup_seed}
     total = dict.fromkeys(kernels, 0)
     total["io_calls"] = {}  # 8b: the IO library's calls in each mode
 
@@ -969,7 +996,8 @@ def sharded_on_card(dev, repo: str) -> dict:
         check(s > 0, f"10: over its {SHARDED_BUDGET_S} s bound")
         return s
 
-    total = {"worklog_phase": 0, "staged_phase": 0, "packed_field_gather": 0}
+    total = {"worklog_phase": 0, "staged_phase": 0, "packed_field_gather": 0,
+             "setup_seed": 0}
 
     def ranks(tag, n, scenarios, **kw):
         t0 = time.perf_counter()
@@ -1100,6 +1128,8 @@ def sharded_on_card(dev, repo: str) -> dict:
         f"exit 0, final n {n_cli} equal to 10a's after {steps} steps; "
         f"{time.perf_counter() - t0:.1f} s")
     left()
+    check(total["setup_seed"] > 0,
+          f"10: the ranks launched no set-up kernel: {total}")
     log(f"10: the sharded path done in {time.perf_counter() - t_phase:.1f} "
         f"s (bound {SHARDED_BUDGET_S} s); launches in the ranks {total}")
     return {"launches": total, "step_ms": step_ms, "charge": charge,
@@ -1139,8 +1169,9 @@ def f64_on_card(dev, repo: str) -> dict:
 
     def counted(tag, cfg, need=(), device=dev):
         """run_pic of ``cfg`` with the launch counts at 0 before it; every
-        kernel in ``need`` must launch, and a float64 run none (its field
-        phase must take the float64 gather at every step)."""
+        kernel in ``need`` must launch, a run on the card the set-up kernel
+        once, and a float64 run no other (its field phase must take the
+        float64 gather at every step)."""
         for k in kernels.values():
             k.launches = 0
         grid_ops.field_counts.reset()
@@ -1149,8 +1180,12 @@ def f64_on_card(dev, repo: str) -> dict:
         for name in need:
             check(got[name] > 0, f"11{tag}: {name} launched {got[name]} "
                   "times")
+        check(got["setup_seed"] == (torch.device(device).type == "cuda"),
+              f"11{tag}: the set-up kernel launched {got['setup_seed']} "
+              "times")
         if cfg.precision == "f64":
-            check(not any(got.values()), f"11{tag}: f64 launched {got}")
+            check(not any(v for k, v in got.items() if k != "setup_seed"),
+                  f"11{tag}: f64 launched {got}")
             check(run.state.pos.dtype == torch.float64,
                   f"11{tag}: positions {run.state.pos.dtype}")
             paths = grid_ops.field_counts.paths
@@ -1676,6 +1711,130 @@ def open_on_card(dev) -> dict:
     return out
 
 
+def setup_on_card(dev) -> dict:
+    """Phase 4g (the module docstring): the set-up kernel against its plain
+    twin at the benchmark's row.  Returns the kernels line's entry for
+    ``setup_seed`` without the launch counts of 5, 8, 10 and 11, with the
+    bound's (bytes, operations) under "work"."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from particle_simulation_tpu_torch import SimConfig
+    from particle_simulation_tpu_torch.config import float_dtype
+    from particle_simulation_tpu_torch.ops.kernels.setup import setup_seed
+    from particle_simulation_tpu_torch.state import seed_plain, setup_particles
+
+    cuda = torch.autograd.DeviceType.CUDA
+    span_name = "smoke.setup"
+
+    def bits(t):
+        return t.contiguous().view(torch.int64 if t.element_size() == 8
+                                   else torch.int32)
+
+    def profiled(fn, reps):
+        """The events of ``reps`` calls of ``fn`` under one profiler
+        session, each call in a ``span_name`` annotation and followed by a
+        synchronise."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                with record_function(span_name):
+                    fn()
+                torch.cuda.synchronize()
+        return prof.events()
+
+    def device_ms(events, name=""):
+        """Device ms of the events' kernels, copies and sets (those whose
+        name holds ``name``), without the annotations' device copies, which
+        cover the kernels inside them (ours and the program's ``pst.*``)."""
+        return sum(e.time_range.elapsed_us() for e in events
+                   if e.device_type == cuda and e.name != span_name
+                   and not e.name.startswith("pst.")
+                   and name in e.name) / 1e3
+
+    def syncs(events):
+        """The host's synchronising runtime calls that start inside a
+        ``span_name`` annotation, by name."""
+        spans = [e.time_range for e in events
+                 if e.name == span_name and e.device_type != cuda]
+        return collections.Counter(
+            e.name for e in events
+            if e.device_type != cuda and any(x in e.name for x in SYNC_CALLS)
+            and any(r.start <= e.time_range.start <= r.end for r in spans))
+
+    t0 = time.perf_counter()
+    # the control: a readback inside the annotation, one a call, which the
+    # sync count has to see before a 0 of the kernel's means anything
+    control = syncs(profiled(lambda: torch.ones(1, device=dev).item(), 4))
+    check(sum(control.values()) >= 4,
+          f"4g: the sync count saw {dict(control)} in 4 readbacks")
+    out = {"syncs_control": dict(control)}
+    for variant, extra in SETUP_VARIANTS.items():
+        cfg = SimConfig(**SETUP_ROW, **extra)
+        got = setup_particles(cfg, device=dev)
+        want = seed_plain(cfg, 0, dev)
+        check(got.n == want.n == cfg.init_n, f"4g {variant}: n {got.n}")
+        for field, g, w in zip(got._fields, got, want):
+            if isinstance(g, torch.Tensor):
+                check(g.dtype == w.dtype and torch.equal(bits(g), bits(w)),
+                      f"4g {variant}: {field} differs from the plain twin")
+        del got, want
+        ms = []
+        for _ in range(SETUP_REPS):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            setup_particles(cfg, device=dev)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+        launches = setup_seed.launches
+        kernel = profiled(lambda: setup_particles(cfg, device=dev),
+                          SETUP_REPS)
+        launches = setup_seed.launches - launches
+        check(launches == SETUP_REPS,
+              f"4g {variant}: {launches} launches in {SETUP_REPS} set-ups")
+        plain = profiled(lambda: seed_plain(cfg, 0, dev), SETUP_PLAIN_REPS)
+        kernel_syncs, plain_syncs = syncs(kernel), syncs(plain)
+        check(not kernel_syncs,
+              f"4g {variant}: synchronising calls in the set-up "
+              f"{dict(kernel_syncs)}")
+        f = torch.empty((), dtype=float_dtype(cfg)).element_size()
+        # every word of the state once; Threefry-2x32 at 20 rounds for the
+        # ids and each axis' position (and velocity) of the live slots
+        block = (THREEFRY_ROUND_OPS * 20 + THREEFRY_INJECTION_OPS * 5
+                 + THREEFRY_SETUP_OPS)
+        work = (cfg.capacity * (6 * f + 3 * 4 + 3 * 4),
+                cfg.init_n * block * (7 if cfg.init_vth else 4))
+        res = {
+            "ms": device_ms(kernel, "setup_seed") / SETUP_REPS,
+            "plain_ms": device_ms(plain) / SETUP_PLAIN_REPS,
+            "event_ms": sorted(ms)[len(ms) // 2],
+            "syncs_a_setup": sum(kernel_syncs.values()) / SETUP_REPS,
+            "plain_syncs_a_setup": (sum(plain_syncs.values())
+                                    / SETUP_PLAIN_REPS),
+            "work": work,
+        }
+        log(f"4g {variant} (capacity {cfg.capacity}, init_n {cfg.init_n}, "
+            f"{cfg.grid_size[0]}^3): equal to the plain twin bit for bit, every field; "
+            f"kernel {res['ms']:.4f} ms by name (CUDA events, median "
+            f"{res['event_ms']:.4f} ms), plain twin {res['plain_ms']:.2f} ms "
+            f"of device time; 1 launch a set-up; synchronising calls inside "
+            f"the set-up: kernel 0, plain twin {dict(plain_syncs)} in "
+            f"{SETUP_PLAIN_REPS} (the control's readbacks {dict(control)} "
+            f"in 4)")
+        out[variant] = res
+    log(f"4g: the set-up kernel equal to its plain twin in "
+        f"{len(SETUP_VARIANTS)} variants; {time.perf_counter() - t0:.1f} s")
+    return {**out["f32"], "ms_f32_vth": out["f32_vth"]["ms"],
+            "ms_f64": out["f64"]["ms"],
+            "plain_ms_f32_vth": out["f32_vth"]["plain_ms"],
+            "plain_ms_f64": out["f64"]["plain_ms"],
+            "syncs_control": out["syncs_control"]}
+
+
 def main() -> int:
     import torch
 
@@ -1698,6 +1857,7 @@ def main() -> int:
     from particle_simulation_tpu_torch.ops.kernels.push_mcc import (
         mobility_phase_dynamic, mobility_phase_dynamic_plain, staged_phase,
     )
+    from particle_simulation_tpu_torch.ops.kernels.setup import setup_seed
     from particle_simulation_tpu_torch.ops.kernels.worklog import (
         mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
     )
@@ -2022,6 +2182,11 @@ def main() -> int:
         "and the full grid, equal to the full grid and the CPU")
     log("4f: both field-phase fallbacks equal to the full grid")
 
+    # ---- 4g. the set-up kernel ----
+    torch.cuda.empty_cache()
+    set_up = setup_on_card(dev)
+    torch.cuda.empty_cache()
+
     # ---- 5. the main path ----
     def drive(cfg, phase, timed_steps=3):
         """1 warm and ``timed_steps`` timed Poisson steps from the seed
@@ -2158,9 +2323,13 @@ def main() -> int:
     worklog_phase.launches = 0
     worklog_phase.passes = 0
     packed_field_gather.launches = 0
+    setup_seed.launches = 0
     grid_ops.field_counts.reset()
     step_ms, step_median, rate, st, m = drive(main_cfg, None)
     n = st.n
+    launches_setup = setup_seed.launches
+    check(launches_setup == 1,
+          f"{launches_setup} set-up kernel launches in the main path's set-up")
     launches_worklog = worklog_phase.launches
     passes_worklog = worklog_phase.passes
     field_launches = packed_field_gather.launches
@@ -2176,6 +2345,7 @@ def main() -> int:
         f"({launches_worklog / 4:g} a phase), device-counted passes="
         f"{passes_worklog} ({passes_worklog / 4:g} a phase), "
         f"packed_field_gather launches={field_launches}, "
+        f"setup_seed launches={launches_setup}, "
         f"added={m['added']} removed={m['removed']}")
     field_paths("5 main path", 4)
     field_phase_ms("5 main path", st, main_cfg)
@@ -2194,8 +2364,11 @@ def main() -> int:
     staged_phase.passes = 0
     staged_phase.reclaims = 0
     packed_field_gather.launches = 0
+    setup_seed.launches = 0
     grid_ops.field_counts.reset()
     old_ms, old_median, old_rate, old_st, old_m = drive(old_cfg, None)
+    check(setup_seed.launches == 1,
+          f"5b: {setup_seed.launches} set-up kernel launches in its set-up")
     staged_launches = staged_phase.launches
     passes_staged = staged_phase.passes
     reclaims_staged = staged_phase.reclaims
@@ -2276,6 +2449,7 @@ def main() -> int:
             "library_ms": timing.library_ms,
             **(timing.extra or {}),
         })
+    setup_work = set_up.pop("work")
 
     # ---- 8. the entry points ----
     entry = entry_points(dev, os.path.dirname(os.path.abspath(__file__)))
@@ -2364,7 +2538,19 @@ def main() -> int:
          "particle_simulation_tpu/ops/pallas/worklog.py:302"),
         ("staged_phase", "staged.cu",
          "particle_simulation_tpu/ops/pallas/push_mcc.py:1113"))),
-        *probe_entries]}))
+        *probe_entries, {
+        "name": "setup_seed",
+        "route": "cuda",
+        "source": "particle_simulation_tpu_torch/csrc/setup.cu",
+        "replaces": "none (plain jnp: particle_simulation_tpu/state.py)",
+        "launches": launches_setup,
+        "launches_entry_points": entry["setup_seed"],
+        "launches_sharded": shard_launches["setup_seed"],
+        "launches_phase11": oracle["launches"]["setup_seed"],
+        **set_up,
+        **bounds("setup_seed", *setup_work),
+        "library_ms": None,
+    }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

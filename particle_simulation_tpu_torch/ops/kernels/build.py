@@ -29,13 +29,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("worklog.cu", "staged.cu", "field.cu", "compact.cu",
-           "sublane_gather.cu", "lookup_bench.cu")
+           "sublane_gather.cu", "lookup_bench.cu", "setup.cu")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # argument types of each exported C function, in order
 SIGNATURES = {
@@ -101,6 +102,15 @@ SIGNATURES = {
     ),
     "pst_lookup_bench_banked_blocks": (
         _P,                     # int* blocks per SM
+    ),
+    "pst_setup_seed": (
+        _P, _P, _P,             # pos, vel, acc
+        _P, _P, _P,             # status, id_hi, id_lo
+        _LL, _LL, _LL, _U,      # capacity, init_n, slot_offset, seed
+        _F, _F, _F,             # lo (shift) of each axis
+        _F, _F, _F,             # scale of each axis
+        _D, _I, _I,             # vth, thermal_start, f64
+        _P,                     # stream
     ),
 }
 

@@ -448,10 +448,12 @@ def kernel_counters():
     """The launch counters of the kernels a rank can reach, by name."""
     from ..ops.kernels.field import packed_field_gather
     from ..ops.kernels.push_mcc import staged_phase
+    from ..ops.kernels.setup import setup_seed
     from ..ops.kernels.worklog import worklog_phase
 
     return {"worklog_phase": worklog_phase, "staged_phase": staged_phase,
-            "packed_field_gather": packed_field_gather}
+            "packed_field_gather": packed_field_gather,
+            "setup_seed": setup_seed}
 
 
 def run_scenarios(mesh: Mesh, scenarios: List[dict]) -> List[dict]:

@@ -38,10 +38,10 @@ ROW = dict(init_n=1_000_000, capacity=50_000_000, grid_size=(512, 512, 512),
            bbox_subgrid=128, poisson_timestep=100)
 SMALL = dict(init_n=300, capacity=20_000, grid_size=(32, 32, 32),
              bbox_subgrid=32, poisson_timestep=6)
-# spans a run_pic episode of 10 Poisson steps opens: pst.run, pst.setup
-# and 4 parts, and a step's pst.step, pst.sync, pst.field and 7 parts,
-# pst.mobility and 3 parts
-SPANS_AN_EPISODE = 2 + 4 + 10 * (2 + 8 + 4)
+# spans a run_pic episode of 10 Poisson steps opens on the card: pst.run,
+# pst.setup and its launch, and a step's pst.step, pst.sync, pst.field and
+# 7 parts, pst.mobility and 3 parts
+SPANS_AN_EPISODE = 2 + 1 + 10 * (2 + 8 + 4)
 _OFF_FLAG = types.SimpleNamespace(_is_profiler_enabled=False)
 
 

@@ -71,6 +71,14 @@ def threefry2x32(key0, key1, ctr0, ctr1, rounds: int = 20):
     return x0, x1
 
 
+def affine(lo: float, hi: float):
+    """The float32 scale and shift that ``uniform_from_bits`` maps [0, 1)
+    onto [lo, hi) with: ``hi - lo`` and ``lo``, each rounded to float32
+    (returned as Python floats).  The set-up kernel (csrc/setup.cu) takes
+    these values from here."""
+    return float(np.float32(hi - lo)), float(np.float32(lo))
+
+
 def uniform_from_bits(bits, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
     """Top 24 bits -> float32 uniform in [lo, hi).
 
@@ -79,8 +87,9 @@ def uniform_from_bits(bits, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
     own (under ``jit`` XLA:CPU would fuse them into one multiply-add and
     move 11-30% of the seeded positions by one ulp).  The collision draw
     has lo = 0, where both forms agree."""
+    scale, shift = affine(lo, hi)
     u01 = ((u32(bits) >> 8).to(torch.float32)) * (2.0 ** -24)
-    return u01 * float(np.float32(hi - lo)) + float(np.float32(lo))
+    return u01 * scale + shift
 
 
 def initial_ids(seed: int, slots):

@@ -20,6 +20,7 @@ from . import rng
 from .config import SimConfig, float_dtype
 from .constants import STATUS_ALIVE, STATUS_EMPTY
 from .device import resolve
+from .ops.kernels import setup as setup_kernel
 from .utils.profiling import span
 
 
@@ -72,17 +73,44 @@ def setup_particles(config: SimConfig, slot_offset: int = 0,
 
     ``slot_offset`` shifts the global particle index that keys the ids, as
     the JAX package's sharded setup uses it.  ``device`` is the card when
-    None (device.resolve)."""
+    None (device.resolve).  A CUDA device runs the set-up kernel
+    (``ops.kernels.setup``: one launch), any other the plain twin
+    ``seed_plain``; the two give the same state bit for bit."""
     c, init_n = config.capacity, config.init_n
     if init_n > c:
         raise ValueError(f"init_n {init_n} exceeds capacity {c}")
     device = resolve(device)
     with span("pst.setup"):
-        return _seed(config, slot_offset, device)
+        if device.type != "cuda":
+            return seed_plain(config, slot_offset, device)
+        fields = setup_kernel.setup_seed(
+            c, init_n, slot_offset, config.seed,
+            [rng.affine(*seed_box(config, ax)) for ax in range(3)],
+            thermal_vth(config), float_dtype(config), device)
+        return SimState(*fields, n=init_n)
 
 
-def _seed(config: SimConfig, slot_offset: int, device) -> SimState:
-    """``setup_particles``' work, each part in its span."""
+def seed_box(config: SimConfig, axis: int):
+    """(lo, hi) in metres of the seed cube along ``axis``: 62 cells about
+    the centre, clamped to the domain for grids below 62 cells."""
+    g = config.grid_size[axis]
+    return (max(0, g // 2 - 30) * config.cell_size,
+            min(g, g // 2 + 32) * config.cell_size)
+
+
+def thermal_vth(config: SimConfig):
+    """The thermal start's ``init_vth`` in the state's float type (float32
+    values as Python floats), or None without one."""
+    if not config.init_vth:
+        return None
+    if float_dtype(config) == torch.float64:
+        return float(config.init_vth)
+    return float(np.float32(config.init_vth))
+
+
+def seed_plain(config: SimConfig, slot_offset: int, device) -> SimState:
+    """``setup_particles``' work as PyTorch operations over every slot,
+    each part in its span: the set-up kernel's plain twin."""
     c, init_n = config.capacity, config.init_n
     fdt = float_dtype(config)
     with span("pst.setup.zero"):
@@ -93,20 +121,15 @@ def _seed(config: SimConfig, slot_offset: int, device) -> SimState:
         id_hi, id_lo = rng.initial_ids(config.seed, slots & rng.MASK)
 
     with span("pst.setup.pos"):
-        axes = []
-        for ax in range(3):
-            g = config.grid_size[ax]
-            # clamp the spawn box to the domain for grids below 62 cells
-            lo = max(0, g // 2 - 30) * config.cell_size
-            hi = min(g, g // 2 + 32) * config.cell_size
-            axes.append(rng.setup_uniform(id_hi, id_lo, ax, lo, hi).to(fdt))
+        axes = [rng.setup_uniform(id_hi, id_lo, ax,
+                                  *seed_box(config, ax)).to(fdt)
+                for ax in range(3)]
         pos = torch.stack(axes, dim=1)
 
     vel = st.vel
-    if config.init_vth:
+    vth = thermal_vth(config)
+    if vth is not None:
         with span("pst.setup.vel"):
-            vth = (float(config.init_vth) if fdt == torch.float64
-                   else float(np.float32(config.init_vth)))
             vel = torch.stack(
                 [vth * rng.setup_gaussian(id_hi, id_lo, ax).to(fdt)
                  for ax in range(3)], dim=1)
@@ -114,7 +137,7 @@ def _seed(config: SimConfig, slot_offset: int, device) -> SimState:
     with span("pst.setup.select"):
         active = torch.arange(c, device=device) < init_n
         zero = torch.zeros((), dtype=torch.int32, device=device)
-        if config.init_vth:
+        if vth is not None:
             vel = torch.where(active[:, None], vel, torch.zeros_like(vel))
         return st._replace(
             pos=torch.where(active[:, None], pos, torch.zeros_like(pos)),

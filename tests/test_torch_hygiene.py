@@ -45,6 +45,7 @@ MODULES = [
     "particle_simulation_tpu_torch.ops.kernels.field",
     "particle_simulation_tpu_torch.ops.kernels.lookup_bench",
     "particle_simulation_tpu_torch.ops.kernels.push_mcc",
+    "particle_simulation_tpu_torch.ops.kernels.setup",
     "particle_simulation_tpu_torch.ops.kernels.sublane_gather",
     "particle_simulation_tpu_torch.ops.kernels.worklog",
     "particle_simulation_tpu_torch.parallel",

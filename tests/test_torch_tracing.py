@@ -28,7 +28,7 @@ PARENT = {
     "pst.run": None,
     "pst.setup": "pst.run",
     **{f"pst.setup.{p}": "pst.setup"
-       for p in ("zero", "ids", "pos", "vel", "select")},
+       for p in ("zero", "ids", "pos", "vel", "select", "launch")},
     "pst.step": "pst.run",
     "pst.sync": "pst.run",
     "pst.field": "pst.step",
@@ -42,6 +42,10 @@ PARENT = {
 # the spans only a CUDA state runs: the engines' and the synchronise
 CARD_ONLY = {"pst.sync", "pst.mobility.alloc", "pst.mobility.launch",
              "pst.mobility.readback"}
+# the set-up's parts: the plain twin's on the CPU, the kernel's on the card
+PLAIN_SETUP = {f"pst.setup.{p}"
+               for p in ("zero", "ids", "pos", "vel", "select")}
+CARD_SETUP = {"pst.setup.launch"}
 # what each field path leaves out of the field phase's spans
 NOT_ON_PATH = {"subgrid": set(), "window_fallback": set(),
                "full": {"pst.field.window", "pst.field.window_readback"}}
@@ -143,7 +147,8 @@ def test_trace_holds_every_span_nested(tmp_path, scheduler, path):
     steps = len(run.steps)
     assert steps == cfg.poisson_steps
     assert grid_ops.field_counts.paths[path] == steps
-    want = set(PARENT) - CARD_ONLY - NOT_ON_PATH[path] - {"pst.setup.vel"}
+    want = (set(PARENT) - CARD_ONLY - CARD_SETUP - NOT_ON_PATH[path]
+            - {"pst.setup.vel"})
     assert {n for n, *_ in spans} == want
     for n, _, _, parent in spans:
         assert parent == PARENT[n], (n, parent)
@@ -210,16 +215,19 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheduler", ["dynamic", "dynamic_old"])
 def test_card_run_holds_every_span(tmp_path, card, scheduler):
-    """On the card a traced run adds the engine's buffers, launch and
-    readback inside ``pst.mobility`` and the synchronise after each step,
-    and gives the CPU's results."""
+    """On the card a traced run seeds the state in one launch
+    (``pst.setup`` holds ``pst.setup.launch`` alone), adds the engine's
+    buffers, launch and readback inside ``pst.mobility`` and the
+    synchronise after each step, and gives the CPU's results."""
     cfg = _config(scheduler)
     on, spans = _traced_run(tmp_path, cfg, card)
-    assert {n for n, *_ in spans} == set(PARENT) - {"pst.setup.vel"}
+    assert {n for n, *_ in spans} == set(PARENT) - PLAIN_SETUP
     for n, _, _, parent in spans:
         assert parent == PARENT[n], (n, parent)
     for n in CARD_ONLY:
         assert sum(1 for s in spans if s[0] == n) == cfg.poisson_steps, n
+    assert [s[0] for s in spans if s[3] == "pst.setup"] == [
+        "pst.setup.launch"]
     off = run_pic(cfg, print_header=False, device="cpu")
     assert _counters(on) == _counters(off)
     assert (multiset_with_ids(on.state) == multiset_with_ids(off.state)).all()
