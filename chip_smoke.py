@@ -215,7 +215,8 @@ float32), whichever is larger (probes/common.py); the line before that
 is 12's ``native_io`` line, and the one before it repeats the card's name
 and power limit.  The two engines' lines
 add the slice of 9b: ``models_ms`` (the phase's mean over steps 1-3),
-``models_launches``, ``models_passes`` and ``models_bound_ms``; the
+``models_launches`` (``models_general_launches`` of them through the
+general instantiation), ``models_passes`` and ``models_bound_ms``; the
 engines' and the field gather's lines add ``launches_sharded``, their
 launches in the ranks of 10, and ``launches_phase11``, theirs in 11.
 """
@@ -791,7 +792,7 @@ def models_on_card(dev, repo: str) -> dict:
         old_cfg = cfg.replace(scheduler="dynamic_old")
         st = setup_particles(cfg, device=dev)
         for _, _, _, wrapper in engines:
-            wrapper.launches = 0
+            wrapper.launches = wrapper.general_launches = 0
             wrapper.passes = 0
         phase_ms = {"worklog": [], "staged": []}
         step_ms, work, n_after = [], [], []
@@ -844,9 +845,17 @@ def models_on_card(dev, repo: str) -> dict:
             n_after.append(m["n"])
             st = a[0]
         launches = {label: w.launches for label, _, _, w in engines}
+        general = {label: w.general_launches for label, _, _, w in engines}
+        main = {label: launches[label] - general[label] for label in general}
         passes = {label: w.passes for label, _, _, w in engines}
         check(all(v == 4 for v in launches.values()),
               f"9b: launches {launches} in 4 phases of each engine")
+        check(all(v == 4 for v in general.values())
+              and not any(main.values()),
+              f"9b: general launches {general}, main instantiation's "
+              f"{main} in 4 phases of each engine")
+        log(f"9b: general_launches {general}, the main instantiation's "
+            f"launches {main}")
         live = torch.cat([st.pos[: st.n], st.vel[: st.n], st.acc[: st.n]], 1)
         check(bool(torch.isfinite(live).all()), "9b: non-finite state")
         check(bool(((st.pos[: st.n] >= 0)
@@ -865,6 +874,7 @@ def models_on_card(dev, repo: str) -> dict:
             mean, median = stats(phase_ms[label])
             result[label] = {"models_ms": mean, "models_ms_median": median,
                              "models_launches": launches[label],
+                             "models_general_launches": general[label],
                              "models_passes": passes[label],
                              "models_bound_ms": bound}
         mean, median = stats(step_ms)

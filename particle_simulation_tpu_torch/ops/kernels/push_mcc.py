@@ -69,7 +69,7 @@ from ...constants import STATUS_DEAD, STATUS_EMPTY
 from ...cross_section import BUCKET_SCALE, LOG10_E, N_STEPS
 from ...schedulers import pushes_info
 from ...state import SimState
-from ...utils.profiling import span
+from ...utils.profiling import span, span_if
 from .. import population
 from ..physics import (
     Particles, half, model_args, rotation, scalar, update_particles,
@@ -563,8 +563,10 @@ def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
     every pass, reclaim and append to the compacted output ``bufs.out``;
     ``bufs.result`` receives the ``STAGED_RESULT`` words.  With
     ``bufs.kids`` the open instantiation runs (on as many blocks as the
-    scratch was sized for), else the compiled one.  Raises before any
-    launch on a buffer the kernel does not take."""
+    scratch was sized for), else the compiled one; any model but the
+    reference launches the general instantiation, inside the span
+    ``pst.mobility.general``.  Raises before any launch on a buffer the
+    kernel does not take."""
     kid_blocks = 0 if bufs.kids is None else bufs.kids.shape[1] // STAGED_TILE
     shapes = staged_scratch_shapes(state.capacity, config.spawn_depth,
                                    kid_blocks)
@@ -576,7 +578,8 @@ def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
     ])
     out = bufs.out
     kids = () if bufs.kids is None else (bufs.kids.data_ptr(), kid_blocks)
-    with span("pst.mobility.launch"):
+    general = model_bits(config) != 0
+    with span("pst.mobility.launch"), span_if(general, "pst.mobility.general"):
         lib.call(
             "pst_staged_phase_open" if kids else "pst_staged_phase",
             state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
@@ -594,10 +597,13 @@ def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
         )
     staged_phase.launches += 1
     staged_phase.open_launches += bool(kids)
+    staged_phase.general_launches += general
 
 
 staged_phase.launches = 0
 staged_phase.open_launches = 0  # of them, launches of the open instantiation
+# of them, launches of the general instantiation, compiled or open
+staged_phase.general_launches = 0
 staged_phase.passes = 0    # passes the kernel counted, over every phase
 staged_phase.reclaims = 0  # reclaims the kernel made, over every phase
 staged_phase.last = {}     # the last phase's STAGED_RESULT words

@@ -39,11 +39,11 @@ import torch
 from ...config import SimConfig
 from ...schedulers import mobility_phase_naive, pushes_info
 from ...state import SimState
-from ...utils.profiling import span
+from ...utils.profiling import span, span_if
 from .. import population
 from .push_mcc import (
     CHILD_WORDS, NF, check_buffers, check_f32, check_kernel_args, compiled,
-    empty_state, open_blocks, phys_args, state_buffers,
+    empty_state, model_bits, open_blocks, phys_args, state_buffers,
 )
 
 # records a tile and threads a block of the phase kernel (-DPST_WORKLOG_TILE)
@@ -136,13 +136,16 @@ def worklog_phase(lib, state: SimState, bufs: PhaseBuffers, table,
     ``state.n_clamped`` records of ``state`` (read, never written) through
     every pass to the done log ``bufs.out``; ``bufs.result`` receives the
     ``RESULT`` words.  With ``bufs.kids`` the open instantiation runs (on
-    as many blocks as the scratch was sized for), else the compiled one.
-    Raises before any launch on a buffer the kernel does not take."""
+    as many blocks as the scratch was sized for), else the compiled one;
+    any model but the reference launches the general instantiation, inside
+    the span ``pst.mobility.general``.  Raises before any launch on a
+    buffer the kernel does not take."""
     _check_buffers(state, bufs, config)
     out = bufs.out
     kids = (() if bufs.kids is None
             else (bufs.kids.data_ptr(), _kid_blocks(bufs)))
-    with span("pst.mobility.launch"):
+    general = model_bits(config) != 0
+    with span("pst.mobility.launch"), span_if(general, "pst.mobility.general"):
         lib.call(
             "pst_worklog_phase_open" if kids else "pst_worklog_phase",
             state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
@@ -159,10 +162,13 @@ def worklog_phase(lib, state: SimState, bufs: PhaseBuffers, table,
         )
     worklog_phase.launches += 1
     worklog_phase.open_launches += bool(kids)
+    worklog_phase.general_launches += general
 
 
 worklog_phase.launches = 0
 worklog_phase.open_launches = 0  # of them, launches of the open instantiation
+# of them, launches of the general instantiation, compiled or open
+worklog_phase.general_launches = 0
 worklog_phase.passes = 0  # passes the kernel counted, over every phase
 worklog_phase.last = {}   # the last phase's RESULT words
 

@@ -20,7 +20,8 @@ kernels and copies and, on the same clock, the program's layers as
 ``pst.setup`` and its draws, then per Poisson step ``pst.step`` with the
 field phase (``pst.field`` and its window, deposit, stencil, gather, store
 and two readbacks), the mobility phase (``pst.mobility``: on the card its
-buffers, launch and readback) and ``pst.sync``.  A span nests inside the
+buffers, launch and readback, and inside the launch ``pst.mobility.general``
+where the engines' general instantiation runs) and ``pst.sync``.  A span nests inside the
 one that encloses it in time; the trace's idle gaps fall inside the span
 that held the host.  Any ``torch.profiler`` session records the spans, not
 only this one's.
@@ -48,6 +49,12 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _OFF
+
+
+def span_if(cond: bool, name: str):
+    """``span(name)`` where ``cond`` holds, else the shared no-op: a span
+    that only some calls record, at the cost of one branch in the others."""
+    return span(name) if cond else _OFF
 
 
 @contextlib.contextmanager

@@ -200,6 +200,79 @@ def test_span_cost_probe_runs(capsys):
     assert profiling._autograd_profiler is torch.autograd.profiler
 
 
+class _Lib:
+    """A kernel library that records the symbols it is called with."""
+
+    def __init__(self):
+        self.symbols = []
+
+    def call(self, symbol, *args):
+        self.symbols.append(symbol)
+
+
+def _launch(engine, cfg, monkeypatch):
+    """One call of ``engine``'s launch function (``worklog_phase`` or
+    ``staged_phase``) on CPU buffers, with the buffer check, the stream
+    and the library stood in for: (the function, the library)."""
+    from types import SimpleNamespace
+
+    from particle_simulation_tpu_torch.ops.kernels import push_mcc, worklog
+    from particle_simulation_tpu_torch.state import setup_particles
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    st = setup_particles(cfg, device="cpu")
+    table = torch.zeros((10000, 2), dtype=torch.float32)
+    lib = _Lib()
+    if engine == "worklog":
+        monkeypatch.setattr(worklog, "_check_buffers", lambda *a: None)
+        fn, bufs = worklog.worklog_phase, worklog.phase_buffers(st, cfg)
+    else:
+        monkeypatch.setattr(push_mcc, "check_buffers", lambda *a: None)
+        fn, bufs = push_mcc.staged_phase, push_mcc.staged_buffers(st, cfg)
+    fn(lib, st, bufs, table, cfg, 0, cfg.poisson_timestep)
+    return fn, lib
+
+
+@pytest.mark.parametrize("engine", ["worklog", "staged"])
+@pytest.mark.parametrize("model", ["reference", "boris", "isotropic",
+                                   "periodic", "magnetized_argon"])
+def test_general_launch_is_counted_and_spanned(tmp_path, monkeypatch,
+                                               engine, model):
+    """A launch counts in ``general_launches`` under any model but the
+    reference; under a recording profiler it records
+    ``pst.mobility.general`` inside ``pst.mobility.launch`` then and only
+    then, and with no profiler it records nothing."""
+    knobs = {"reference": {}, "boris": dict(integrator="boris"),
+             "isotropic": dict(collision_model="isotropic"),
+             "periodic": dict(boundary="periodic"),
+             "magnetized_argon": dict(
+                 integrator="boris", b_field=(0.0, 0.0, -1.76e9),
+                 collision_model="isotropic", boundary="periodic",
+                 init_vth=2e6)}[model]
+    cfg = _config(**knobs)
+    general = model != "reference"
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function built with no profiler")
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        m.setattr(torch.autograd.profiler, "record_function", refuse)
+        fn, lib = _launch(engine, cfg, monkeypatch)
+    assert lib.symbols == [f"pst_{engine}_phase"]
+    counts = (fn.launches, fn.general_launches)
+    log_dir = str(tmp_path / "trace")
+    with profiling.trace(log_dir):
+        _launch(engine, cfg, monkeypatch)
+    assert (fn.launches, fn.general_launches) == (counts[0] + 1,
+                                                  counts[1] + general)
+    assert [(n, parent) for n, _, _, parent in _spans(log_dir)
+            if n.startswith("pst.mobility")] == (
+        [("pst.mobility.launch", None)]
+        + [("pst.mobility.general", "pst.mobility.launch")] * general)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -228,6 +301,31 @@ def test_card_run_holds_every_span(tmp_path, card, scheduler):
         assert sum(1 for s in spans if s[0] == n) == cfg.poisson_steps, n
     assert [s[0] for s in spans if s[3] == "pst.setup"] == [
         "pst.setup.launch"]
+    off = run_pic(cfg, print_header=False, device="cpu")
+    assert _counters(on) == _counters(off)
+    assert (multiset_with_ids(on.state) == multiset_with_ids(off.state)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", ["dynamic", "dynamic_old"])
+def test_card_general_run_counts_and_spans(tmp_path, card, scheduler):
+    """Under magnetized argon every phase on the card launches the general
+    instantiation and no other, each launch inside ``pst.mobility.general``
+    within ``pst.mobility.launch``, and the run gives the CPU's results."""
+    from particle_simulation_tpu_torch.ops.kernels import push_mcc, worklog
+
+    fn = {"dynamic": worklog.worklog_phase,
+          "dynamic_old": push_mcc.staged_phase}[scheduler]
+    cfg = _config(scheduler, integrator="boris", b_field=(0.0, 0.0, -1.76e9),
+                  collision_model="isotropic", boundary="periodic",
+                  init_vth=2e6)
+    before = (fn.launches, fn.general_launches)
+    on, spans = _traced_run(tmp_path, cfg, card)
+    steps = cfg.poisson_steps
+    assert (fn.launches - before[0], fn.general_launches - before[1]) == (
+        steps, steps)
+    general = [s for s in spans if s[0] == "pst.mobility.general"]
+    assert [s[3] for s in general] == ["pst.mobility.launch"] * steps
     off = run_pic(cfg, print_header=False, device="cpu")
     assert _counters(on) == _counters(off)
     assert (multiset_with_ids(on.state) == multiset_with_ids(off.state)).all()
