@@ -33,11 +33,18 @@ Phases, each printing one line or a few:
        sorted and random ids; then the main path's field phase on its
        steps 0-2 (step 0 must take the bbox subgrid), the kernel path
        against the plain path (the same state on the CPU) and against the
-       full grid (bbox_subgrid=0), and packed_field_gather against its
-       plain twin on each step's gather inputs (all bitwise);
+       full grid (bbox_subgrid=0), with one launch of each subgrid kernel
+       (subgrid_bbox, subgrid_deposit, subgrid_field_store) and one
+       readback a subgrid phase, and packed_field_gather against its
+       plain twin on each step's gather inputs of the PyTorch chain (all
+       bitwise); then the kernel chain against the PyTorch chain on the
+       card at the benchmark's row (5e7 slots, 1e6 and 2.2e7 live,
+       bbox_subgrid 128): bit for bit, each kernel's device time by name,
+       the phase's device and host ms on both chains;
    (f) each fallback of the field phase forced once: the window (the
        const churn's 62-cell cube at bbox_subgrid=16) and the 10-bit
-       packing (600 charges in one cell), against the full grid and the
+       packing (600 charges in one cell: taken on the full grid; the
+       subgrid's kernel chain has none), against the full grid and the
        CPU (bitwise);
    (g) the set-up kernel (setup_seed, csrc/setup.cu) at the benchmark's
        row (1e6 live electrons in 5e7 slots, 512^3), float32, the thermal
@@ -424,7 +431,7 @@ def entry_points(dev, repo: str) -> dict:
     )
     from particle_simulation_tpu_torch.ops import grid as grid_ops
     from particle_simulation_tpu_torch.ops.kernels.field import (
-        packed_field_gather,
+        packed_field_gather, subgrid_field_store,
     )
     from particle_simulation_tpu_torch.ops.kernels.push_mcc import staged_phase
     from particle_simulation_tpu_torch.ops.kernels.setup import setup_seed
@@ -434,7 +441,12 @@ def entry_points(dev, repo: str) -> dict:
     t_phase = time.perf_counter()
     on_card = dev.type == "cuda"
     kernels = {"worklog_phase": worklog_phase, "staged_phase": staged_phase,
-               "field_gather": packed_field_gather, "setup_seed": setup_seed}
+               "field_gather": packed_field_gather,
+               "subgrid_field_store": subgrid_field_store,
+               "setup_seed": setup_seed}
+    # "field" in a part's needed kernels: a field phase's last kernel, the
+    # packed gather (full grid) or the subgrid chain's store
+    every_path = ("worklog_phase", "staged_phase", "field", "setup_seed")
     total = dict.fromkeys(kernels, 0)
     total["io_calls"] = {}  # 8b: the IO library's calls in each mode
 
@@ -448,6 +460,7 @@ def entry_points(dev, repo: str) -> dict:
         for name, n in got.items():
             total[name] += n
         log(f"8{tag} launches: {got}")
+        got["field"] = got["field_gather"] + got["subgrid_field_store"]
         if on_card:
             check(all(got[k] > 0 for k in needed),
                   f"8{tag}: a kernel of its path was not launched: {got}")
@@ -481,7 +494,7 @@ def entry_points(dev, repo: str) -> dict:
 
     testing.run_pic = keep_first
     try:
-        rc = counted("a", kernels, test_mode)
+        rc = counted("a", every_path, test_mode)
     finally:
         testing.run_pic = run_pic
     lines = out.getvalue().splitlines()
@@ -570,7 +583,7 @@ def entry_points(dev, repo: str) -> dict:
         shutil.copy(os.path.join(ckpt, "step_000002.npz"), resume_dir)
         cfg = cli.parse_args(CLI_ARGV).config
         resumed = counted(
-            "b", ("worklog_phase", "field_gather"),
+            "b", ("worklog_phase", "field"),
             lambda: checkpoint.resume_run(cfg, resume_dir, device=dev))
         check(len(resumed.steps) == steps - 2
               and resumed.final_n == final.n
@@ -608,7 +621,7 @@ def entry_points(dev, repo: str) -> dict:
         out_csv = os.path.join(tmp, "sweep.csv")
         benchmarks.run_pic = measured
         try:
-            sweep = counted("c", kernels, lambda: benchmarks.run_benchmark(
+            sweep = counted("c", every_path, lambda: benchmarks.run_benchmark(
                 out_csv=out_csv, device=dev, **SWEEP))
         finally:
             benchmarks.run_pic = bench_run_pic
@@ -1165,9 +1178,14 @@ def f64_on_card(dev, repo: str) -> dict:
     from particle_simulation_tpu_torch.probes import weak_scaling
     from particle_simulation_tpu_torch.runtime import multiset_with_ids, run_pic
 
+    from particle_simulation_tpu_torch.ops.kernels.field import (
+        subgrid_field_store,
+    )
+
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    kernels = kernel_counters()
+    kernels = {**kernel_counters(),
+               "subgrid_field_store": subgrid_field_store}
     total = dict.fromkeys(kernels, 0)
     const = cross_section.bundled_paths()[1]
     out = {}
@@ -1179,7 +1197,8 @@ def f64_on_card(dev, repo: str) -> dict:
 
     def counted(tag, cfg, need=(), device=dev):
         """run_pic of ``cfg`` with the launch counts at 0 before it; every
-        kernel in ``need`` must launch, a run on the card the set-up kernel
+        kernel in ``need`` must launch ("field": the packed gather or the
+        subgrid chain's store), a run on the card the set-up kernel
         once, and a float64 run no other (its field phase must take the
         float64 gather at every step)."""
         for k in kernels.values():
@@ -1187,9 +1206,10 @@ def f64_on_card(dev, repo: str) -> dict:
         grid_ops.field_counts.reset()
         run = run_pic(cfg, print_header=False, device=device)
         got = {name: k.launches for name, k in kernels.items()}
+        field = got["packed_field_gather"] + got["subgrid_field_store"]
         for name in need:
-            check(got[name] > 0, f"11{tag}: {name} launched {got[name]} "
-                  "times")
+            n = field if name == "field" else got[name]
+            check(n > 0, f"11{tag}: {name} launched {n} times")
         check(got["setup_seed"] == (torch.device(device).type == "cuda"),
               f"11{tag}: the set-up kernel launched {got['setup_seed']} "
               "times")
@@ -1270,7 +1290,7 @@ def f64_on_card(dev, repo: str) -> dict:
     del runs
     r32 = counted("b f32 dynamic", cfg.replace(precision="f32",
                                                scheduler="dynamic"),
-                  ("worklog_phase", "packed_field_gather"))
+                  ("worklog_phase", "field"))
     out["f64_final_n"], out["f32_final_n"] = n64, r32.final_n
     log(f"11b: f64 sync equal to f64 naive (multiset with ids, counters); "
         f"final n f64 {n64}, f32 dynamic {r32.final_n}, relative "
@@ -1845,6 +1865,170 @@ def setup_on_card(dev) -> dict:
             "syncs_control": out["syncs_control"]}
 
 
+def field_chain_on_card(dev) -> dict:
+    """Phase 4e's chain part (the module docstring): the card's subgrid field
+    phase (``grid_ops.subgrid_field_chain``: ``subgrid_bbox``,
+    ``subgrid_deposit``, ``subgrid_field_store``) against the PyTorch chain
+    on the same card (``bbox_field_acceleration`` and the capacity store)
+    at the benchmark's row, bbox_subgrid 128: the set-up's state (1e6 live
+    in 5e7 slots) and the same rows tiled to 2.2e7 live (the magnetized
+    cell's last step).  Each must give the PyTorch chain's acc bit for
+    bit, with one launch of each kernel and one readback a phase (the
+    synchronising calls of one control readback); each kernel's device
+    time by name, the phase's device and host ms on both chains.  Returns
+    the kernels line's entries by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from particle_simulation_tpu_torch import SimConfig
+    from particle_simulation_tpu_torch.ops import grid as grid_ops
+    from particle_simulation_tpu_torch.ops.kernels import field
+    from particle_simulation_tpu_torch.ops.population import is_live
+    from particle_simulation_tpu_torch.state import setup_particles
+
+    cuda = torch.autograd.DeviceType.CUDA
+    span_name = "smoke.field"
+    kernels = (field.subgrid_bbox, field.subgrid_deposit,
+               field.subgrid_field_store)
+    reps = 10
+    cfg = SimConfig(**SETUP_ROW, bbox_subgrid=128)
+    e = cfg.electric_force_constant
+
+    def chain(st):
+        return grid_ops.subgrid_field_chain(
+            st.pos, st.status, st.n_clamped, cfg.cell_size, cfg.grid_size,
+            e, cfg.bbox_subgrid)
+
+    def torch_chain(st):
+        m = st.n_clamped
+        weight = is_live(st.status[:m]).to(torch.int32)
+        a = grid_ops.bbox_field_acceleration(
+            st.pos[:m], weight, cfg.cell_size, cfg.grid_size, e,
+            subgrid=cfg.bbox_subgrid)
+        acc = torch.zeros_like(st.acc)
+        acc[:m] = a
+        return acc
+
+    def profiled(fn, st):
+        """(events, host ms a call) of ``reps`` calls under one profiler
+        session, each in a ``span_name`` annotation, then synchronised."""
+        fn(st)
+        torch.cuda.synchronize()
+        ms = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                with record_function(span_name):
+                    fn(st)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return prof.events(), sorted(ms)[len(ms) // 2]
+
+    def device_ms(events, name=""):
+        return sum(e.time_range.elapsed_us() for e in events
+                   if e.device_type == cuda and e.name != span_name
+                   and not e.name.startswith("pst.")
+                   and name in e.name) / 1e3 / reps
+
+    def syncs(events):
+        """The host's synchronising runtime calls a call, those starting
+        inside a ``span_name`` annotation."""
+        spans = [e.time_range for e in events
+                 if e.name == span_name and e.device_type != cuda]
+        return sum(1 for e in events if e.device_type != cuda
+                   and any(x in e.name for x in SYNC_CALLS)
+                   and any(r.start <= e.time_range.start <= r.end
+                           for r in spans)) / reps
+
+    def host_ms(fn, st):
+        """Median host ms of ``reps`` unprofiled calls, each synchronised."""
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(st)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ms)[len(ms) // 2]
+
+    t0 = time.perf_counter()
+    st = setup_particles(cfg, device=dev)
+    # the control: what one readback of six words counts
+    control = syncs(profiled(
+        lambda _: torch.zeros(6, dtype=torch.int32, device=dev).tolist(),
+        st)[0])
+    check(control >= 1, f"4e chain: the sync count saw {control} a readback")
+    cases = {"1e6": st}
+    big = 22 * cfg.init_n
+    tiled = st._replace(pos=st.pos.clone(), status=st.status.clone(), n=big)
+    tiled.pos[:big] = st.pos[:cfg.init_n].repeat(22, 1)
+    tiled.status[:big] = st.status[:cfg.init_n].repeat(22)
+    cases["2.2e7"] = tiled
+    out = {}
+    for label, case in cases.items():
+        grid_ops.field_counts.reset()
+        before = [k.launches for k in kernels]
+        got = chain(case)
+        torch.cuda.synchronize()
+        check(got is not None, f"4e chain {label}: the box did not fit")
+        check([k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1],
+              f"4e chain {label}: launches {[k.launches for k in kernels]}")
+        check(grid_ops.field_counts.readbacks == 1,
+              f"4e chain {label}: {grid_ops.field_counts.as_dict()}")
+        want = torch_chain(case)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"4e chain {label}: differs from the PyTorch chain")
+        del got, want
+        events, chain_host = profiled(chain, case)
+        torch_events, torch_host = profiled(torch_chain, case)
+        res = {name: device_ms(events, name) for name in
+               ("subgrid_bbox", "subgrid_deposit", "subgrid_field_store")}
+        res.update(
+            memset_ms=device_ms(events, "Memset"),
+            device_ms=device_ms(events), host_ms=host_ms(chain, case),
+            profiled_host_ms=chain_host, syncs=syncs(events),
+            torch_device_ms=device_ms(torch_events),
+            torch_host_ms=host_ms(torch_chain, case),
+            torch_profiled_host_ms=torch_host,
+            torch_syncs=syncs(torch_events))
+        check(res["syncs"] == control, f"4e chain {label}: {res['syncs']} "
+              f"synchronising calls a phase, {control} a readback")
+        out[label] = res
+        log(f"  4e chain at the benchmark's row, {label} live of "
+            f"{cfg.capacity}: equal to the PyTorch chain bit for bit, 1 "
+            "launch of each kernel, 1 readback; device ms by name: "
+            + ", ".join(f"{k} {res[k]:.4f}" for k in
+                        ("subgrid_bbox", "subgrid_deposit",
+                         "subgrid_field_store", "memset_ms"))
+            + f"; phase device {res['device_ms']:.4f} ms, host "
+            f"{res['host_ms']:.3f} ms (profiled {chain_host:.3f}), "
+            f"{res['syncs']:g} synchronising calls a phase ({control:g} a "
+            f"readback); PyTorch chain device "
+            f"{res['torch_device_ms']:.4f} ms, host "
+            f"{res['torch_host_ms']:.3f} ms (profiled {torch_host:.3f}), "
+            f"{res['torch_syncs']:g} synchronising calls a phase")
+    del st, tiled, cases
+    torch.cuda.empty_cache()
+    m = cfg.init_n
+    work = {"subgrid_bbox": 16 * m, "subgrid_deposit": 16 * m,
+            "subgrid_field_store": 16 * m + 12 * cfg.capacity}
+    log(f"4e chain: {time.perf_counter() - t0:.1f} s")
+    return {name: {
+        "route": "cuda",
+        "source": "particle_simulation_tpu_torch/csrc/field.cu",
+        "replaces": "none (plain jnp: particle_simulation_tpu/ops/grid.py "
+                    "bbox_field_acceleration)",
+        "ms": out["1e6"][name],
+        "ms_22e6": out["2.2e7"][name],
+        "plain_ms": out["1e6"]["torch_device_ms"],
+        "phase_ms": out["1e6"]["device_ms"],
+        "phase_host_ms": out["1e6"]["host_ms"],
+        "plain_host_ms": out["1e6"]["torch_host_ms"],
+        "work": (work[name], 0),
+    } for name in work}
+
+
 def main() -> int:
     import torch
 
@@ -1862,7 +2046,8 @@ def main() -> int:
     )
     from particle_simulation_tpu_torch.ops.kernels.field import (
         banded_gather, banded_gather_plain, packed_field_gather,
-        packed_field_gather_plain,
+        packed_field_gather_plain, subgrid_bbox, subgrid_deposit,
+        subgrid_field_store,
     )
     from particle_simulation_tpu_torch.ops.kernels.push_mcc import (
         mobility_phase_dynamic, mobility_phase_dynamic_plain, staged_phase,
@@ -2124,19 +2309,27 @@ def main() -> int:
     e_const = main_cfg.electric_force_constant
     st = setup_particles(main_cfg, device=dev)
     gather_ms, gather_plain_ms, gather_work = [], [], []
+    chain_kernels = (subgrid_bbox, subgrid_deposit, subgrid_field_store)
     for s in range(3):
         grid_ops.field_counts.reset()
+        before = [k.launches for k in chain_kernels]
         k_acc = grid_phase(st, main_cfg).acc
+        chain = [k.launches - b for k, b in zip(chain_kernels, before)]
         path = grid_ops.field_counts.last
         readbacks = grid_ops.field_counts.readbacks
         check(s > 0 or path == "subgrid",
               f"4e step 0 took the {path} path, not the subgrid")
+        check(chain == ([1, 1, 1] if path == "subgrid" else [1, 0, 0])
+              and readbacks == (1 if path == "subgrid" else 2),
+              f"4e step {s} ({path}): chain launches {chain}, readbacks "
+              f"{readbacks}")
         check(same_bits(k_acc, grid_phase(on_cpu(st), main_cfg).acc),
               f"4e step {s}: kernel field phase differs from the plain one")
         check(same_bits(k_acc, grid_phase(st, full_cfg).acc),
               f"4e step {s}: subgrid field phase differs from the full grid")
         line = (f"  4e main step {s}: n={st.n} path={path} "
-                f"readbacks={readbacks}, equal to plain and to the full grid")
+                f"readbacks={readbacks}, chain launches {chain}, equal to "
+                "plain and to the full grid")
         if path == "subgrid":
             args = (*gather_inputs(st, main_cfg), e_const)
             kg = packed_field_gather(*args)
@@ -2160,8 +2353,10 @@ def main() -> int:
     field_plain_ms = sum(gather_plain_ms) / len(gather_plain_ms)
     field_work = [sum(w[i] for w in gather_work) / len(gather_work)
                   for i in (0, 1)]
+    chain_entries = field_chain_on_card(dev)
     log("4e: field gather equal to plain; main-path field phase equal to "
-        "plain and to the full grid (steps 0-2)")
+        "plain and to the full grid (steps 0-2); the kernel chain equal to "
+        "the PyTorch chain at the benchmark's row")
 
     # ---- 4f. the field phase's fallbacks ----
     cfg16 = SimConfig(**CHURN, bbox_subgrid=16)
@@ -2180,16 +2375,24 @@ def main() -> int:
     st = setup_particles(cfg, device=dev)
     st.pos[:600] = 32.5 * cfg.cell_size  # 600 charges in cell (32, 32, 32)
     grid_ops.field_counts.reset()
-    a = grid_phase(st, cfg).acc
-    check(grid_ops.field_counts.last == "subgrid"
+    full = grid_phase(st, cfg.replace(bbox_subgrid=0)).acc
+    check(grid_ops.field_counts.last == "full"
           and grid_ops.field_counts.rows_fallback == 1,
           f"4f: 10-bit fallback not taken {grid_ops.field_counts.as_dict()}")
-    check(same_bits(a, grid_phase(st, cfg.replace(bbox_subgrid=0)).acc),
-          "4f 10-bit fallback differs from the full grid")
+    grid_ops.field_counts.reset()
+    before = [k.launches for k in chain_kernels]
+    a = grid_phase(st, cfg).acc
+    chain = [k.launches - b for k, b in zip(chain_kernels, before)]
+    check(grid_ops.field_counts.last == "subgrid"
+          and grid_ops.field_counts.rows_fallback == 0 and chain == [1, 1, 1],
+          f"4f: the subgrid phase with 600 charges in one cell "
+          f"{grid_ops.field_counts.as_dict()}, chain launches {chain}")
+    check(same_bits(a, full), "4f 10-bit fallback differs from the full grid")
     check(same_bits(a, grid_phase(on_cpu(st), cfg).acc),
           "4f 10-bit fallback differs from the CPU")
-    log("  4f 10-bit fallback (600 charges in one cell): taken on the subgrid "
-        "and the full grid, equal to the full grid and the CPU")
+    log("  4f 10-bit fallback (600 charges in one cell): taken on the full "
+        "grid; the subgrid's kernel chain (one launch each, no fallback) "
+        "equal to the full grid and the CPU")
     log("4f: both field-phase fallbacks equal to the full grid")
 
     # ---- 4g. the set-up kernel ----
@@ -2333,6 +2536,8 @@ def main() -> int:
     worklog_phase.launches = 0
     worklog_phase.passes = 0
     packed_field_gather.launches = 0
+    for k in chain_kernels:
+        k.launches = 0
     setup_seed.launches = 0
     grid_ops.field_counts.reset()
     step_ms, step_median, rate, st, m = drive(main_cfg, None)
@@ -2343,19 +2548,20 @@ def main() -> int:
     launches_worklog = worklog_phase.launches
     passes_worklog = worklog_phase.passes
     field_launches = packed_field_gather.launches
+    chain_launches = [k.launches for k in chain_kernels]
     check(launches_worklog == 4,
           f"{launches_worklog} work-log launches in 4 mobility phases")
     check(passes_worklog > launches_worklog,
           "the main path's phases counted no chained passes")
-    check(field_launches > 0,
-          "the main path did not launch the field-gather kernel")
+    check(field_launches + chain_launches[2] > 0,
+          "the main path launched no field-phase kernel")
     log(f"5 main path (kernel): {step_ms:.2f} ms/Poisson step (median "
         f"{step_median:.2f}), {rate:.4e} pushes/s, final n={n}, "
         f"overflow=False, worklog_phase launches={launches_worklog} "
         f"({launches_worklog / 4:g} a phase), device-counted passes="
         f"{passes_worklog} ({passes_worklog / 4:g} a phase), "
-        f"packed_field_gather launches={field_launches}, "
-        f"setup_seed launches={launches_setup}, "
+        f"packed_field_gather launches={field_launches}, subgrid chain "
+        f"launches={chain_launches}, setup_seed launches={launches_setup}, "
         f"added={m['added']} removed={m['removed']}")
     field_paths("5 main path", 4)
     field_phase_ms("5 main path", st, main_cfg)
@@ -2374,6 +2580,8 @@ def main() -> int:
     staged_phase.passes = 0
     staged_phase.reclaims = 0
     packed_field_gather.launches = 0
+    for k in chain_kernels:
+        k.launches = 0
     setup_seed.launches = 0
     grid_ops.field_counts.reset()
     old_ms, old_median, old_rate, old_st, old_m = drive(old_cfg, None)
@@ -2386,8 +2594,8 @@ def main() -> int:
           f"{staged_launches} staged launches in 4 mobility phases")
     check(passes_staged > staged_launches,
           "5b: the staged phases counted no chained passes")
-    check(packed_field_gather.launches > 0,
-          "5b did not launch the field-gather kernel")
+    check(packed_field_gather.launches + subgrid_field_store.launches > 0,
+          "5b launched no field-phase kernel")
     check(old_st.n == n, f"dynamic_old final n {old_st.n} vs dynamic {n}")
     log(f"5b main path dynamic_old (kernel): {old_ms:.2f} ms/Poisson step "
         f"(median {old_median:.2f}), {old_rate:.4e} pushes/s, final "
@@ -2396,7 +2604,8 @@ def main() -> int:
         f"each), device-counted passes={passes_staged} "
         f"({passes_staged / 4:g} a phase), reclaims={reclaims_staged} "
         f"({reclaims_staged / 4:g} a phase), packed_field_gather "
-        f"launches={packed_field_gather.launches}, added={old_m['added']} "
+        f"launches={packed_field_gather.launches}, subgrid chain launches="
+        f"{[k.launches for k in chain_kernels]}, added={old_m['added']} "
         f"removed={old_m['removed']}")
     field_paths("5b main path dynamic_old", 4)
     field_phase_ms("5b main path dynamic_old", old_st, old_cfg)
@@ -2536,6 +2745,15 @@ def main() -> int:
         **bounds("field_gather", *field_work),
         "library_ms": None,
     }, *({
+        "name": name,
+        "launches": launches,
+        **{k: v for k, v in entry_.items() if k != "work"},
+        **({"launches_entry_points": entry["subgrid_field_store"]}
+           if name == "subgrid_field_store" else {}),
+        **bounds(name, *entry_["work"]),
+        "library_ms": None,
+    } for (name, entry_), launches in zip(chain_entries.items(),
+                                         chain_launches)), *({
         "name": f"{name}_open",
         "variant_of": name,
         "route": "cuda",

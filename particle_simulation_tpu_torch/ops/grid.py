@@ -28,6 +28,15 @@ once; ``field_counts`` counts the decisions and the readbacks.  The parts
 of a field phase are spans inside ``pst.field`` (``utils.profiling.span``):
 ``pst.field.window``, ``.window_readback``, ``.deposit``, ``.stencil``,
 ``.fits_readback``, ``.gather`` (and ``.store``, in ``ops.step``).
+
+On a float32 CUDA state ``ops.step.grid_phase`` takes the subgrid as
+``subgrid_field_chain`` instead: ``kernels.field``'s bbox kernel, the
+window test on its six words read back once, the deposit kernel and a
+kernel that gathers the three integer diffs at each live row and writes
+the state's whole ``acc``; its spans are ``pst.field.window``,
+``.window_readback``, ``.deposit`` and ``.gather``.  It shares only the
+window test (``window_of``) with the chain above, and falls back to the
+same full grid.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .kernels import field as field_kernels
 from .kernels.field import PACK_BIAS as _PACK_BIAS
 from .kernels.field import packed_field_gather
 from ..utils.profiling import span
@@ -227,7 +237,12 @@ def fit_window(lo, hi, grid_size, subgrid: int):
     with span("pst.field.window_readback"):
         lo_hi = torch.cat([lo, hi]).tolist()
     field_counts.readbacks += 1
-    lo, hi = lo_hi[:3], lo_hi[3:]
+    return window_of(lo_hi[:3], lo_hi[3:], grid_size, subgrid)
+
+
+def window_of(lo, hi, grid_size, subgrid: int):
+    """(origin, fits) of host bounds ``lo``, ``hi`` (three ints each): the
+    window test's arithmetic."""
     S = subgrid
     origin = [max(l - 1, 0) for l in lo]
     fits = all(
@@ -265,26 +280,68 @@ def _subgrid_packdiff_acc(flat_sub, counts, S, e_const, weight):
     return _field_from_diffs(dx, dy, dz, flat_sub, weight, e_const)
 
 
+def _check_subgrid(S: int) -> None:
+    if S <= 0 or (S * S * S) % 128:
+        raise ValueError(f"subgrid edge {S} must be a positive multiple of 8")
+
+
+def window_fallback_acceleration(pos, weight, cell_size, grid_size,
+                                 e_const) -> torch.Tensor:
+    """The field of a box that does not fit the window: the full grid's
+    deposit and packed diffs, noted as ``window_fallback``."""
+    field_counts.note("window_fallback")
+    with span("pst.field.deposit"):
+        charge = deposit(pos, weight, cell_size, grid_size)
+    return gather_acceleration_packdiff(
+        charge, pos, weight, cell_size, grid_size, e_const)
+
+
 def bbox_field_acceleration(pos, weight, cell_size, grid_size, e_const,
                             subgrid: int = 64) -> torch.Tensor:
     """The field phase (deposit + stencil + gather) on an S^3 subgrid when
     the live population fits the window, else on the full grid; the same
     values either way.  ``weight`` is int32, 1 for a live particle."""
     S = subgrid
-    if S <= 0 or (S * S * S) % 128:
-        raise ValueError(f"subgrid edge {S} must be a positive multiple of 8")
+    _check_subgrid(S)
     with span("pst.field.window"):
         idx = cell_indices(pos, cell_size, grid_size)
         lo, hi = live_bbox(idx, weight, grid_size)
     origin, fits = fit_window(lo, hi, grid_size, S)
     if not fits:
-        field_counts.note("window_fallback")
-        with span("pst.field.deposit"):
-            charge = deposit(pos, weight, cell_size, grid_size)
-        return gather_acceleration_packdiff(
-            charge, pos, weight, cell_size, grid_size, e_const)
+        return window_fallback_acceleration(pos, weight, cell_size,
+                                            grid_size, e_const)
     field_counts.note("subgrid")
     with span("pst.field.deposit"):
         flat_sub = subgrid_ids(idx, weight, origin, S)
         counts = subgrid_deposit(flat_sub, S)
     return _subgrid_packdiff_acc(flat_sub, counts, S, e_const, weight)
+
+
+def subgrid_field_chain(pos, status, m, cell_size, grid_size, e_const,
+                        subgrid: int):
+    """The subgrid field phase of a float32 state on the card, as
+    ``kernels.field``'s chain: the new (capacity, 3) ``acc`` of the state
+    whose ``pos`` (capacity, 3) and ``status`` (capacity,) hold its
+    population in the first ``m`` rows, or None when the box does not fit
+    the window (the caller then takes the full grid).  The same values as
+    ``bbox_field_acceleration`` stored at capacity, with one readback (the
+    window test) and the three kernels; CPU tensors take their plain
+    twins."""
+    S = subgrid
+    _check_subgrid(S)
+    with span("pst.field.window"):
+        words = field_kernels.subgrid_bbox(pos, status, m, cell_size,
+                                           grid_size)
+    with span("pst.field.window_readback"):
+        lo, hi = field_kernels.bbox_bounds(words.tolist(), grid_size)
+    field_counts.readbacks += 1
+    origin, fits = window_of(lo, hi, grid_size, S)
+    if not fits:
+        return None
+    field_counts.note("subgrid")
+    with span("pst.field.deposit"):
+        counts = field_kernels.subgrid_deposit(pos, status, m, cell_size,
+                                               grid_size, origin, S)
+    with span("pst.field.gather"):
+        return field_kernels.subgrid_field_store(
+            pos, status, m, cell_size, grid_size, origin, S, counts, e_const)

@@ -87,6 +87,24 @@ SIGNATURES = {
         _P, _LL,                # out, n
         _P,                     # stream
     ),
+    "pst_subgrid_bbox": (
+        _P, _P, _LL, _F,        # pos, status, m, inv
+        _I, _I, _I, _P,         # gx, gy, gz, words
+        _P,                     # stream
+    ),
+    "pst_subgrid_deposit": (
+        _P, _P, _LL, _F,        # pos, status, m, inv
+        _I, _I, _I,             # gx, gy, gz
+        _I, _I, _I, _I,         # ox, oy, oz, s
+        _P, _P,                 # counts, stream
+    ),
+    "pst_subgrid_field_store": (
+        _P, _P, _LL, _LL, _F,   # pos, status, m, capacity, inv
+        _I, _I, _I,             # gx, gy, gz
+        _I, _I, _I, _I,         # ox, oy, oz, s
+        _P, _F, _P,             # counts, e_const, acc
+        _P,                     # stream
+    ),
     "pst_row_compact": (
         _P, _P, _P, _P, _LL,    # x, out, ptr, state, n_rows
         _P,                     # stream

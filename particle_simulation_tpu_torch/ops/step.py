@@ -76,16 +76,30 @@ def grid_phase(state: SimState, config: SimConfig) -> SimState:
     diffs; under ``field_model="fft"`` the full-grid deposit and the
     spectral solve (models/poisson_fft.py); else, under ``precision=
     "f64"``, the full-grid deposit and the float64 gather
-    (``grid_ops.gather_acceleration``).  ``grid_ops.field_counts``
-    records the path taken and the readbacks (at most two a phase).  The
-    phase is the span ``pst.field`` (``utils.profiling.span``)."""
+    (``grid_ops.gather_acceleration``).  A float32 CUDA state takes the
+    subgrid as ``grid_ops.subgrid_field_chain``'s three kernels, which
+    write the new ``acc`` themselves after one readback (the window test);
+    every other case runs the PyTorch chain, with at most two readbacks.
+    ``grid_ops.field_counts`` records the path taken and the readbacks.
+    The phase is the span ``pst.field`` (``utils.profiling.span``)."""
     with span("pst.field"):
         m = state.n_clamped
+        e = config.electric_force_constant
+        subgrid = (config.bbox_subgrid and config.field_model == "neighbour"
+                   and state.pos.dtype == torch.float32)
+        on_card = subgrid and state.pos.is_cuda
+        if on_card:
+            acc = grid_ops.subgrid_field_chain(
+                state.pos, state.status, m, config.cell_size,
+                config.grid_size, e, config.bbox_subgrid)
+            if acc is not None:
+                return state._replace(acc=acc)
         pos = state.pos[:m]
         weight = population.is_live(state.status[:m]).to(torch.int32)
-        e = config.electric_force_constant
-        if (config.bbox_subgrid and config.field_model == "neighbour"
-                and pos.dtype == torch.float32):
+        if on_card:
+            a = grid_ops.window_fallback_acceleration(
+                pos, weight, config.cell_size, config.grid_size, e)
+        elif subgrid:
             a = grid_ops.bbox_field_acceleration(
                 pos, weight, config.cell_size, config.grid_size, e,
                 subgrid=config.bbox_subgrid,

@@ -49,6 +49,10 @@ CARD_SETUP = {"pst.setup.launch"}
 # what each field path leaves out of the field phase's spans
 NOT_ON_PATH = {"subgrid": set(), "window_fallback": set(),
                "full": {"pst.field.window", "pst.field.window_readback"}}
+# what the card's subgrid path (the kernel chain, which writes acc itself
+# after one readback) leaves out besides
+NOT_ON_CARD_SUBGRID = {"pst.field.stencil", "pst.field.fits_readback",
+                       "pst.field.store"}
 # the bbox_subgrid that takes each path on the 32^3 grid: the seed cube
 # spans every cell, which a 32-cell window holds and an 8-cell one does not
 SUBGRID = {"subgrid": 32, "window_fallback": 8, "full": 0}
@@ -289,16 +293,21 @@ def card():
 @pytest.mark.parametrize("scheduler", ["dynamic", "dynamic_old"])
 def test_card_run_holds_every_span(tmp_path, card, scheduler):
     """On the card a traced run seeds the state in one launch
-    (``pst.setup`` holds ``pst.setup.launch`` alone), adds the engine's
-    buffers, launch and readback inside ``pst.mobility`` and the
-    synchronise after each step, and gives the CPU's results."""
+    (``pst.setup`` holds ``pst.setup.launch`` alone), runs the subgrid
+    field phase as the kernel chain (``pst.field.window``,
+    ``.window_readback``, ``.deposit``, ``.gather``: one readback a phase),
+    adds the engine's buffers, launch and readback inside ``pst.mobility``
+    and the synchronise after each step, and gives the CPU's results."""
     cfg = _config(scheduler)
     on, spans = _traced_run(tmp_path, cfg, card)
-    assert {n for n, *_ in spans} == set(PARENT) - PLAIN_SETUP
+    assert {n for n, *_ in spans} == (set(PARENT) - PLAIN_SETUP
+                                      - NOT_ON_CARD_SUBGRID)
     for n, _, _, parent in spans:
         assert parent == PARENT[n], (n, parent)
-    for n in CARD_ONLY:
+    for n in CARD_ONLY | {"pst.field.window_readback"}:
         assert sum(1 for s in spans if s[0] == n) == cfg.poisson_steps, n
+    assert grid_ops.field_counts.paths["subgrid"] == cfg.poisson_steps
+    assert grid_ops.field_counts.readbacks == cfg.poisson_steps
     assert [s[0] for s in spans if s[3] == "pst.setup"] == [
         "pst.setup.launch"]
     off = run_pic(cfg, print_header=False, device="cpu")
