@@ -235,27 +235,13 @@ import os
 import sys
 import time
 
-# operations of the bound's count (csrc/physics.cuh and threefry.cuh, an
-# FMA counted as two and logf as one): a lane-step's moves, lookup and
-# draw outside the cipher (44: the main path's count of 70 a push less its
-# share of the 13-round block), and a Threefry block of R rounds, 3 a round
-# (add, rotate, xor), 3 a key injection every 4 rounds and 4 to set up the
-# key schedule and the first injection
-LANE_STEP_OPS = 44
-THREEFRY_ROUND_OPS, THREEFRY_INJECTION_OPS, THREEFRY_SETUP_OPS = 3, 3, 4
-
-
-def ops_per_push(rounds: int, block2: bool) -> float:
-    """Operations a lane-step of the reference engines does at ``rounds``
-    Threefry rounds; under block2 two steps share a block."""
-    block = (THREEFRY_ROUND_OPS * rounds
-             + THREEFRY_INJECTION_OPS * (rounds // 4) + THREEFRY_SETUP_OPS)
-    return LANE_STEP_OPS + block / (2 if block2 else 1)
-
+from particle_simulation_tpu_torch.probes.common import (
+    RECORD_BYTES, THREEFRY_INJECTION_OPS, THREEFRY_ROUND_OPS,
+    THREEFRY_SETUP_OPS, ops_per_push,
+)
 
 # the main path's and the model slice's: 13 rounds under block2, 70
 OPS_PER_PUSH = ops_per_push(13, block2=True)
-RECORD_BYTES = 48    # a particle: pos, vel, acc (3 x 12) + status, id_hi, id_lo
 FIELD_OPS = 10       # a particle of the field gather: unpack, scale, mask
 MAIN = dict(init_n=1_000_000, capacity=2_000_000, poisson_timestep=100,
             grid_size=(256, 256, 256), scheduler="dynamic")
@@ -689,9 +675,9 @@ def models_on_card(dev, repo: str) -> dict:
     import torch
 
     from particle_simulation_tpu_torch import SimConfig, cross_section
+    from particle_simulation_tpu_torch.ops.kernels.engine import model_bits
     from particle_simulation_tpu_torch.ops.kernels.push_mcc import (
-        mobility_phase_dynamic, mobility_phase_dynamic_plain, model_bits,
-        staged_phase,
+        mobility_phase_dynamic, mobility_phase_dynamic_plain, staged_phase,
     )
     from particle_simulation_tpu_torch.ops.kernels.worklog import (
         mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
@@ -1536,6 +1522,7 @@ def open_on_card(dev) -> dict:
     import torch
 
     from particle_simulation_tpu_torch import SimConfig, cross_section
+    from particle_simulation_tpu_torch.ops.kernels import engine
     from particle_simulation_tpu_torch.ops.kernels import push_mcc as pm
     from particle_simulation_tpu_torch.ops.kernels import worklog as wl
     from particle_simulation_tpu_torch.ops.step import grid_phase, poisson_step
@@ -1596,7 +1583,7 @@ def open_on_card(dev) -> dict:
                 before = wrapper.open_launches
                 b, bi = opened(g, 1, sine, cfg, cfg.poisson_timestep)
                 rb = dict(wrapper.last)
-                tag = (f"13a {name} model {pm.model_bits(cfg)} {mode}")
+                tag = (f"13a {name} model {engine.model_bits(cfg)} {mode}")
                 check(wrapper.open_launches - before == 1,
                       f"{tag}: the open symbol did not launch")
                 check(same_bits(a, b) and ai == bi,
@@ -1618,7 +1605,7 @@ def open_on_card(dev) -> dict:
         for name, (wrapper, phase, _, plain, scheduler) in engines.items():
             cfg = SimConfig(**dict(CHURN, scheduler=scheduler), **models,
                             spawn_depth=depth, rng_rounds=rounds)
-            check(not pm.compiled(cfg), f"13b: {cfg} is compiled")
+            check(not engine.compiled(cfg), f"13b: {cfg} is compiled")
             st = setup_particles(cfg, device=dev)
             for s in range(steps):
                 g = grid_phase(st, cfg)
@@ -1630,7 +1617,7 @@ def open_on_card(dev) -> dict:
                 (p, pi), p_ms = timed(plain, g, s, const, cfg,
                                       cfg.poisson_timestep)
                 tag = (f"13b {name} depth {depth} rounds {rounds} model "
-                       f"{pm.model_bits(cfg)} step {s}")
+                       f"{engine.model_bits(cfg)} step {s}")
                 x, y = multiset_with_ids(k), multiset_with_ids(p)
                 check(x.shape == y.shape and np.array_equal(x, y),
                       f"{tag}: multiset differs from plain")
@@ -2285,7 +2272,9 @@ def main() -> int:
         m, S = st.n_clamped, cfg.bbox_subgrid
         weight = is_live(st.status[:m]).to(torch.int32)
         idx = grid_ops.cell_indices(st.pos[:m], cfg.cell_size, cfg.grid_size)
-        origin, fits = grid_ops.bbox_window(idx, weight, cfg.grid_size, S)
+        origin, fits = grid_ops.fit_window(
+            *grid_ops.live_bbox(idx, weight, cfg.grid_size), cfg.grid_size,
+            S)
         check(fits, "4e: the main path's box does not fit the window")
         flat = grid_ops.subgrid_ids(idx, weight, origin, S)
         counts = grid_ops.subgrid_deposit(flat, S)

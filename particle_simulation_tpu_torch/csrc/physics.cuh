@@ -4,7 +4,7 @@
 // ops/physics.py (and of XLA's contraction of the JAX package's
 // ops/physics.py), operation for operation.
 //
-// Two instantiations of advance_lane: the reference one (GENERAL = false:
+// Two instantiations of lane_steps: the reference one (GENERAL = false:
 // leapfrog, absorbing boundary, reverse collisions, the main path's code)
 // and the general one, which reads the model selections of the JAX
 // package's ops/physics.py from PhysConsts::model at run time (boris with
@@ -29,7 +29,7 @@ constexpr int kStatusEmpty = 0;  // constants.py STATUS_*
 constexpr int kStatusAlive = -1;
 constexpr int kStatusDead = -2;
 
-// PhysConsts::model bits (ops/kernels/push_mcc.py MODEL_BITS); 0 is the
+// PhysConsts::model bits (ops/kernels/engine.py MODEL_BITS); 0 is the
 // reference model
 constexpr int kBoris = 1;       // integrator="boris"
 constexpr int kMagnetized = 2;  // boris with a nonzero b_field
@@ -205,6 +205,27 @@ struct OpenLimits {
   PST_HD Child child(int d) const { return children[d * stride]; }
 };
 
+// D = kOpen is an engine's open instantiation: spawn depth and rounds from
+// its arguments (ROUNDS is unused), the children in a scratch buffer.
+constexpr int kOpen = 0;
+
+#if defined(__CUDACC__)
+// Where a lane of a TILE-thread block keeps its children: the compiled
+// set's in ``regs``, the open instantiation's in the thread's slices of
+// the engine's scratch ``a.kids`` (a Child a resident thread and depth).
+template <int D, int ROUNDS, int TILE, typename Args>
+__device__ __forceinline__ auto tile_limits(
+    const Args& a, Child (&regs)[D == kOpen ? 1 : D]) {
+  if constexpr (D == kOpen) {
+    return OpenLimits{a.kids + blockIdx.x * TILE + threadIdx.x,
+                      static_cast<long long>(gridDim.x) * TILE, a.depth,
+                      a.rounds};
+  } else {
+    return FixedLimits<D, ROUNDS>{regs};
+  }
+}
+#endif
+
 // Runs lane L (an unfinished record) through steps start..t_steps and
 // returns the number of steps it moved.  ``table`` is the table in device
 // memory (const float2*) or staged in shared memory (SharedTable).  On
@@ -339,21 +360,6 @@ PST_HD int lane_steps(Lane& L, const Limits& lim, int& n_children,
   L.status = stamp;
   n_children = depth;
   return pushes;
-}
-
-// The compiled set: spawn depth D and ROUNDS rounds, children[0..n_children)
-template <int D, int ROUNDS, bool BLOCK2, bool GENERAL, typename Table>
-PST_HD int advance_lane(Lane& L, Child (&children)[D], int& n_children,
-                        Table table, const PhysConsts& k) {
-  return lane_steps<BLOCK2, GENERAL>(L, FixedLimits<D, ROUNDS>{children},
-                                     n_children, table, k);
-}
-
-// The open instantiations: any spawn depth and round count (``lim``)
-template <bool BLOCK2, bool GENERAL, typename Table>
-PST_HD int advance_lane(Lane& L, const OpenLimits& lim, int& n_children,
-                        Table table, const PhysConsts& k) {
-  return lane_steps<BLOCK2, GENERAL>(L, lim, n_children, table, k);
 }
 
 }  // namespace pst

@@ -12,9 +12,9 @@
 //
 // The staged semantics: records live in a (12, C) int32 record stack (pos,
 // vel, acc as float bit patterns, status, id_hi, id_lo; ops/kernels/
-// push_mcc.py FIELD_NAMES) whose slots [0, n) are the population.  A pass
+// engine.py FIELD_NAMES) whose slots [0, n) are the population.  A pass
 // advances every unfinished lane (fresh -1, spawn stamp > 0, suspended)
-// through physics.cuh's advance_lane and writes it back in place: the
+// through physics.cuh's lane_steps and writes it back in place: the
 // finished marker (encode_finished) if it is live at the end, DEAD, or the
 // suspended packing if its D child slots filled.  The pass's children go
 // to [n, n + k), depth-major and then in slot order; those at or beyond
@@ -72,7 +72,7 @@
 // counts alone, so the output is the same on every run.
 //
 // The model menu (ops/physics.py: boris with or without a field, the
-// periodic box, isotropic children; physics.cuh advance_lane).  Each
+// periodic box, isotropic children; physics.cuh lane_steps).  Each
 // kernel is instantiated twice per (depth, rounds, block2): the reference
 // instantiation, the main path's code as it was, and the general one,
 // which reads PhysConsts::model at run time (the same for every lane, so
@@ -138,9 +138,6 @@ constexpr int kTableBytes = PST_N_STEPS * static_cast<int>(sizeof(float2));
 constexpr int kNF = 12;
 constexpr int kStatusField = 9;
 constexpr int kMaxDepth = 4;  // the compiled set's largest spawn depth
-// D = kOpen is the open instantiation: spawn depth and rounds from the
-// arguments (ROUNDS is unused), the children in a scratch buffer
-constexpr int kOpen = 0;
 static_assert(kTile % 32 == 0 && kTile <= 1024, "a block is whole warps");
 // a region's header words
 constexpr int kTicket = 0;
@@ -307,119 +304,27 @@ struct PassIn {
 
 // One sweep tile: list entries [tile * kTile, +kTile) of the pass.  Each
 // lane's children go to this pass's staging regions, its slot to the next
-// list if it suspends, at ranks from D + 1 look-backs in ``words``.  Adds
-// the thread's pushes and newly DEAD lanes to its sums.
+// list if it suspends, at ranks from D + 1 look-backs in ``words``.  The
+// lane's sweep is the same in every instantiation; the ranking and the
+// emission split: the compiled set ranks the D + 1 streams at once (a warp
+// a stream), the open instantiation, whose spawn depth may pass the
+// block's warps, two at a time (a block scan of the pair, a look-back each
+// by warps 0 and 1, the pair's emission).  Adds the thread's pushes and
+// newly DEAD lanes to its sums.
 template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __device__ __forceinline__ void sweep_tile(
     const Args& a, int tile, const PassIn<D>& in, int32_t* stack,
     int32_t* next_list, int32_t* stage, unsigned long long* words,
     long long& pushes, int& died) {
-  __shared__ unsigned int base[kMaxDepth + 1];  // the tile's offsets
+  // the tile's offsets: a stream each, or the open instantiation's pair
+  __shared__ unsigned int base[D == kOpen ? 2 : kMaxDepth + 1];
   extern __shared__ float2 table_rows[];
   const long long cap = a.cap;
   const int j = tile * kTile + threadIdx.x;
   Lane L;
-  Child kids[D];
-  int n_kids = 0;
-  bool suspended = false;
-  long long slot = 0;
-  if (j < in.n_list) {
-    if (j < in.n_susp) {
-      slot = __ldcg(in.list + j);
-      L = load_row(stack + slot, cap);
-    } else {
-      long long off = j - in.n_susp;
-      slot = in.n_app + off;
-      int d = 0;
-      while (d < D - 1 && off >= in.k_depth[d]) off -= in.k_depth[d++];
-      L = load_row(in.kids + d * kNF * cap + off, cap);
-      // the fields the write-back below leaves alone
-      int32_t* p = stack + slot;
-      p[6 * cap] = __float_as_int(L.ax);
-      p[7 * cap] = __float_as_int(L.ay);
-      p[8 * cap] = __float_as_int(L.az);
-      p[10 * cap] = static_cast<int32_t>(L.id_hi);
-      p[11 * cap] = static_cast<int32_t>(L.id_lo);
-    }
-    pushes += advance_lane<D, ROUNDS, BLOCK2, GENERAL>(
-        L, kids, n_kids, SharedTable{table_rows}, a.k);
-    int32_t* p = stack + slot;
-    p[0] = __float_as_int(L.px);
-    p[cap] = __float_as_int(L.py);
-    p[2 * cap] = __float_as_int(L.pz);
-    p[3 * cap] = __float_as_int(L.vx);
-    p[4 * cap] = __float_as_int(L.vy);
-    p[5 * cap] = __float_as_int(L.vz);
-    const bool live = L.status == kStatusAlive || L.status > 0;
-    p[kStatusField * cap] = live ? encode_finished(L.status) : L.status;
-    suspended = is_suspended(L.status);
-    died += L.status == kStatusDead ? 1 : 0;
-  }
-  // ranks in the D + 1 streams: the children of each depth, then the
-  // suspended lanes; two streams a block scan
-  int flag[kMaxDepth + 2], ex[kMaxDepth + 2], tot[kMaxDepth + 2];
-#pragma unroll
-  for (int d = 0; d < D; ++d) flag[d] = n_kids > d ? 1 : 0;
-  flag[D] = suspended ? 1 : 0;
-  flag[D + 1] = 0;
-#pragma unroll
-  for (int i = 0; i <= D; i += 2) {
-    if (i) __syncthreads();
-    block_scan2<kTile>(flag[i], flag[i + 1], ex[i], ex[i + 1], tot[i],
-                       tot[i + 1]);
-  }
-  const int warp = threadIdx.x >> 5;
-  if (warp <= D) {
-    int t = tot[0];
-#pragma unroll
-    for (int i = 1; i <= D; ++i) {
-      if (warp == i) t = tot[i];
-    }
-    const unsigned int e = lookback_exclusive(words + warp * a.tiles_max, tile,
-                                              static_cast<unsigned int>(t));
-    if ((threadIdx.x & 31) == 0) base[warp] = e;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    if (d < n_kids) {
-      const Child& c = kids[d];
-      int32_t* out = stage + d * kNF * cap + base[d] + ex[d];
-      out[0] = __float_as_int(c.px);
-      out[cap] = __float_as_int(c.py);
-      out[2 * cap] = __float_as_int(c.pz);
-      out[3 * cap] = __float_as_int(c.vx);
-      out[4 * cap] = __float_as_int(c.vy);
-      out[5 * cap] = __float_as_int(c.vz);
-      out[6 * cap] = __float_as_int(L.ax);
-      out[7 * cap] = __float_as_int(L.ay);
-      out[8 * cap] = __float_as_int(L.az);
-      out[9 * cap] = c.stamp;
-      out[10 * cap] = static_cast<int32_t>(c.id_hi);
-      out[11 * cap] = static_cast<int32_t>(c.id_lo);
-    }
-  }
-  if (suspended) next_list[base[D] + ex[D]] = static_cast<int32_t>(slot);
-}
-
-// sweep_tile for the open instantiation, whose spawn depth may pass the
-// block's warps: the lane's children go to its slices of the scratch, and
-// the depth + 1 streams are ranked two at a time (a block scan of the pair,
-// a look-back each by warps 0 and 1, the pair's emission).
-template <bool BLOCK2, bool GENERAL>
-__device__ __forceinline__ void sweep_tile_open(
-    const Args& a, int tile, const PassIn<kOpen>& in, int32_t* stack,
-    int32_t* next_list, int32_t* stage, unsigned long long* words,
-    long long& pushes, int& died) {
-  __shared__ unsigned int base[2];  // the pair's offsets
-  extern __shared__ float2 table_rows[];
-  const long long cap = a.cap;
-  const int depth = a.depth;
-  const int j = tile * kTile + threadIdx.x;
-  const long long threads = static_cast<long long>(gridDim.x) * kTile;
-  const OpenLimits kids{a.kids + blockIdx.x * kTile + threadIdx.x, threads,
-                        depth, a.rounds};
-  Lane L;
+  Child regs[D == kOpen ? 1 : D];
+  const auto kids = tile_limits<D, ROUNDS, kTile>(a, regs);
+  const int depth = kids.slots();
   int n_kids = 0;
   bool suspended = false;
   long long slot = 0;
@@ -441,8 +346,8 @@ __device__ __forceinline__ void sweep_tile_open(
       p[10 * cap] = static_cast<int32_t>(L.id_hi);
       p[11 * cap] = static_cast<int32_t>(L.id_lo);
     }
-    pushes += advance_lane<BLOCK2, GENERAL>(L, kids, n_kids,
-                                            SharedTable{table_rows}, a.k);
+    pushes += lane_steps<BLOCK2, GENERAL>(L, kids, n_kids,
+                                          SharedTable{table_rows}, a.k);
     int32_t* p = stack + slot;
     p[0] = __float_as_int(L.px);
     p[cap] = __float_as_int(L.py);
@@ -455,48 +360,96 @@ __device__ __forceinline__ void sweep_tile_open(
     suspended = is_suspended(L.status);
     died += L.status == kStatusDead ? 1 : 0;
   }
-  // stream s < depth: the children of depth s; stream depth: the
-  // suspended lanes
-  auto flag = [&](int s) {
-    return s < depth ? (n_kids > s ? 1 : 0)
-                     : (s == depth && suspended ? 1 : 0);
-  };
-  const int warp = threadIdx.x >> 5;
-  for (int i = 0; i <= depth; i += 2) {
-    int ex[2], tot[2];
-    if (i) __syncthreads();  // the scan's warp sums and base are reused
-    block_scan2<kTile>(flag(i), flag(i + 1), ex[0], ex[1], tot[0], tot[1]);
-    if (warp < 2 && i + warp <= depth) {
+  if constexpr (D == kOpen) {
+    // stream s < depth: the children of depth s; stream depth: the
+    // suspended lanes
+    auto flag = [&](int s) {
+      return s < depth ? (n_kids > s ? 1 : 0)
+                       : (s == depth && suspended ? 1 : 0);
+    };
+    const int warp = threadIdx.x >> 5;
+    for (int i = 0; i <= depth; i += 2) {
+      int ex[2], tot[2];
+      if (i) __syncthreads();  // the scan's warp sums and base are reused
+      block_scan2<kTile>(flag(i), flag(i + 1), ex[0], ex[1], tot[0], tot[1]);
+      if (warp < 2 && i + warp <= depth) {
+        const unsigned int e = lookback_exclusive(
+            words + (i + warp) * a.tiles_max, tile,
+            static_cast<unsigned int>(warp ? tot[1] : tot[0]));
+        if ((threadIdx.x & 31) == 0) base[warp] = e;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = i + h;
+        if (!flag(s)) continue;
+        const long long at = static_cast<long long>(base[h]) + ex[h];
+        if (s == depth) {
+          next_list[at] = static_cast<int32_t>(slot);
+          continue;
+        }
+        const Child c = kids.child(s);
+        int32_t* out = stage + s * kNF * cap + at;
+        out[0] = __float_as_int(c.px);
+        out[cap] = __float_as_int(c.py);
+        out[2 * cap] = __float_as_int(c.pz);
+        out[3 * cap] = __float_as_int(c.vx);
+        out[4 * cap] = __float_as_int(c.vy);
+        out[5 * cap] = __float_as_int(c.vz);
+        out[6 * cap] = __float_as_int(L.ax);
+        out[7 * cap] = __float_as_int(L.ay);
+        out[8 * cap] = __float_as_int(L.az);
+        out[9 * cap] = c.stamp;
+        out[10 * cap] = static_cast<int32_t>(c.id_hi);
+        out[11 * cap] = static_cast<int32_t>(c.id_lo);
+      }
+    }
+  } else {
+    // ranks in the D + 1 streams: the children of each depth, then the
+    // suspended lanes; two streams a block scan
+    int flag[kMaxDepth + 2], ex[kMaxDepth + 2], tot[kMaxDepth + 2];
+#pragma unroll
+    for (int d = 0; d < D; ++d) flag[d] = n_kids > d ? 1 : 0;
+    flag[D] = suspended ? 1 : 0;
+    flag[D + 1] = 0;
+#pragma unroll
+    for (int i = 0; i <= D; i += 2) {
+      if (i) __syncthreads();
+      block_scan2<kTile>(flag[i], flag[i + 1], ex[i], ex[i + 1], tot[i],
+                         tot[i + 1]);
+    }
+    const int warp = threadIdx.x >> 5;
+    if (warp <= D) {
+      int t = tot[0];
+#pragma unroll
+      for (int i = 1; i <= D; ++i) {
+        if (warp == i) t = tot[i];
+      }
       const unsigned int e = lookback_exclusive(
-          words + (i + warp) * a.tiles_max, tile,
-          static_cast<unsigned int>(warp ? tot[1] : tot[0]));
+          words + warp * a.tiles_max, tile, static_cast<unsigned int>(t));
       if ((threadIdx.x & 31) == 0) base[warp] = e;
     }
     __syncthreads();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int s = i + h;
-      if (!flag(s)) continue;
-      const long long at = static_cast<long long>(base[h]) + ex[h];
-      if (s == depth) {
-        next_list[at] = static_cast<int32_t>(slot);
-        continue;
+    for (int d = 0; d < D; ++d) {
+      if (d < n_kids) {
+        const Child& c = regs[d];
+        int32_t* out = stage + d * kNF * cap + base[d] + ex[d];
+        out[0] = __float_as_int(c.px);
+        out[cap] = __float_as_int(c.py);
+        out[2 * cap] = __float_as_int(c.pz);
+        out[3 * cap] = __float_as_int(c.vx);
+        out[4 * cap] = __float_as_int(c.vy);
+        out[5 * cap] = __float_as_int(c.vz);
+        out[6 * cap] = __float_as_int(L.ax);
+        out[7 * cap] = __float_as_int(L.ay);
+        out[8 * cap] = __float_as_int(L.az);
+        out[9 * cap] = c.stamp;
+        out[10 * cap] = static_cast<int32_t>(c.id_hi);
+        out[11 * cap] = static_cast<int32_t>(c.id_lo);
       }
-      const Child c = kids.children[s * threads];
-      int32_t* out = stage + s * kNF * cap + at;
-      out[0] = __float_as_int(c.px);
-      out[cap] = __float_as_int(c.py);
-      out[2 * cap] = __float_as_int(c.pz);
-      out[3 * cap] = __float_as_int(c.vx);
-      out[4 * cap] = __float_as_int(c.vy);
-      out[5 * cap] = __float_as_int(c.vz);
-      out[6 * cap] = __float_as_int(L.ax);
-      out[7 * cap] = __float_as_int(L.ay);
-      out[8 * cap] = __float_as_int(L.az);
-      out[9 * cap] = c.stamp;
-      out[10 * cap] = static_cast<int32_t>(c.id_hi);
-      out[11 * cap] = static_cast<int32_t>(c.id_lo);
     }
+    if (suspended) next_list[base[D] + ex[D]] = static_cast<int32_t>(slot);
   }
 }
 
@@ -656,14 +609,9 @@ __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
     {
       int died = 0;
       for (int tile = ticket(r); tile < n_tiles; tile = ticket(r)) {
-        if constexpr (D == kOpen) {
-          sweep_tile_open<BLOCK2, GENERAL>(a, tile, in, stack, next_list,
-                                           stage, r + kHeader, pushes, died);
-        } else {
-          sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, in, stack,
-                                                 next_list, stage,
-                                                 r + kHeader, pushes, died);
-        }
+        sweep_tile<D, ROUNDS, BLOCK2, GENERAL>(a, tile, in, stack, next_list,
+                                               stage, r + kHeader, pushes,
+                                               died);
       }
       add_block_count(died, r + kCount);
     }

@@ -16,7 +16,7 @@
 //   * a suspended parent and then its children, in depth order, to the work
 //     log of the next pass.  The two work logs are (12, work_cap) int32
 //     planes (pos, vel, acc as float bit patterns, status, id_hi, id_lo;
-//     ops/kernels/push_mcc.py FIELD_NAMES) that the passes ping-pong.
+//     ops/kernels/engine.py FIELD_NAMES) that the passes ping-pong.
 // Work past work_cap is dropped and flags overflow (the counts go on); done
 // records past the capacity are dropped and n_done > C flags it.  A phase
 // stops after t_steps + 1 passes and flags that it did not converge.
@@ -222,28 +222,6 @@ __device__ __forceinline__ void store_done(const PhaseArgs& a, long long j,
   a.out_id_lo[j] = static_cast<int32_t>(r.id_lo);
 }
 
-// D = kOpen is the open instantiation: spawn depth and rounds from the
-// arguments (ROUNDS is unused), the children in the scratch.  Its bound is
-// every instantiation's: ptxas gives each open kernel 80 registers and no
-// spill, two blocks an SM; with __launch_bounds__(kTile, 1) the reference
-// one took 112 registers and one block an SM, and its main-path phase
-// measured 12-23% slower on an H100 at 700 W (PERF.md section 6).
-constexpr int kOpen = 0;
-
-// Where a lane's children go (physics.cuh): the compiled set's to
-// ``regs``, the open instantiation's to the thread's slices of the scratch.
-template <int D, int ROUNDS>
-__device__ __forceinline__ auto tile_limits(
-    const PhaseArgs& a, Child (&regs)[D == kOpen ? 1 : D]) {
-  if constexpr (D == kOpen) {
-    return OpenLimits{a.kids + blockIdx.x * kTile + threadIdx.x,
-                      static_cast<long long>(gridDim.x) * kTile, a.depth,
-                      a.rounds};
-  } else {
-    return FixedLimits<D, ROUNDS>{regs};
-  }
-}
-
 // One tile of one pass: sweep, rank, look back, emit.  ``src`` is null in
 // pass 1 (the source is the caller's state).  Adds the thread's pushes and
 // children to its running sums.
@@ -258,7 +236,7 @@ __device__ __forceinline__ void sweep_tile(
   const int i = tile * kTile + threadIdx.x;
   Lane L;
   Child regs[D == kOpen ? 1 : D];
-  const auto kids = tile_limits<D, ROUNDS>(a, regs);
+  const auto kids = tile_limits<D, ROUNDS, kTile>(a, regs);
   int n_kids = 0;
   bool done = false;
   bool suspended = false;
@@ -319,6 +297,11 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;
 }
 
+// The open instantiation (D = kOpen) takes every instantiation's bound:
+// ptxas gives each open kernel 80 registers and no spill, two blocks an
+// SM; with __launch_bounds__(kTile, 1) the reference one took 112
+// registers and one block an SM, and its main-path phase measured 12-23%
+// slower on an H100 at 700 W (PERF.md section 6).
 template <int D, int ROUNDS, bool BLOCK2, bool GENERAL>
 __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
   cg::grid_group grid = cg::this_grid();

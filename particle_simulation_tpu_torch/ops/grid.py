@@ -221,19 +221,13 @@ def live_bbox(idx, weight, grid_size):
     return lo, hi
 
 
-def bbox_window(idx, weight, grid_size, subgrid: int):
-    """The window test of the bbox path, on one readback of the bounds:
-    (origin, fits), the JAX package's test, so that both take the same
-    path.  Its margins (``origin = max(lo - 1, 0)``; extent S-2, or S-1
-    at the global edge) change no value: no live particle lies outside the
-    box, so every cell outside it holds zero charge."""
-    lo, hi = live_bbox(idx, weight, grid_size)
-    return fit_window(lo, hi, grid_size, subgrid)
-
-
 def fit_window(lo, hi, grid_size, subgrid: int):
-    """(origin, fits) of the bounds ``lo``, ``hi`` ((3,) int32 tensors),
-    read back to the host at once: the window test of ``bbox_window``."""
+    """The window test of the bbox path on one readback of the bounds
+    ``lo``, ``hi`` ((3,) int32 tensors, ``live_bbox``'s): (origin, fits),
+    the JAX package's test, so that both take the same path.  Its margins
+    (``origin = max(lo - 1, 0)``; extent S-2, or S-1 at the global edge)
+    change no value: no live particle lies outside the box, so every cell
+    outside it holds zero charge."""
     with span("pst.field.window_readback"):
         lo_hi = torch.cat([lo, hi]).tolist()
     field_counts.readbacks += 1

@@ -22,8 +22,7 @@ import subprocess
 
 from ...cross_section import N_STEPS
 from ...utils.buildlib import build_once, source_hash
-from .push_mcc import kernel_defines
-from .worklog import LOOKBACK_REGIONS, RESULT, TILE
+from . import push_mcc, worklog
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,6 +37,19 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _D = ctypes.c_double
 
+# the phase kernels' arguments from the table on: the physics
+# (engine.phys_args) and the stream
+_PHASE_TAIL = (
+    _P,                     # table
+    _F, _F, _F, _F, _F,     # dt, half_dt, size_x, size_y, size_z
+    _F, _F,                 # log10_e, bucket_scale
+    _U, _U, _I,             # seed, poisson_step, t_steps
+    _I, _I, _I,             # depth, rounds, block2
+    _I, _F, _F, _F,         # model, t (boris rotation)
+    _F, _F, _F,             # s (boris rotation)
+    _P,                     # stream
+)
+
 # argument types of each exported C function, in order
 SIGNATURES = {
     "pst_worklog_phase": (
@@ -47,14 +59,7 @@ SIGNATURES = {
         _P, _P, _P, _LL,        # out_status, out_id_hi, out_id_lo, capacity
         _P, _LL,                # logs, work_cap
         _P, _LL, _P,            # lookback, tiles_max, result
-        _P,                     # table
-        _F, _F, _F, _F, _F,     # dt, half_dt, size_x, size_y, size_z
-        _F, _F,                 # log10_e, bucket_scale
-        _U, _U, _I,             # seed, poisson_step, t_steps
-        _I, _I, _I,             # depth, rounds, block2
-        _I, _F, _F, _F,         # model, t (boris rotation)
-        _F, _F, _F,             # s (boris rotation)
-        _P,                     # stream
+        *_PHASE_TAIL,
     ),
     "pst_staged_phase": (
         _P, _P, _P,             # pos, vel, acc
@@ -63,14 +68,7 @@ SIGNATURES = {
         _P, _P, _P, _LL,        # out_status, out_id_hi, out_id_lo, capacity
         _P, _P, _P,             # stacks, stage, list
         _P, _LL, _P,            # lookback, tiles_max, result
-        _P,                     # table
-        _F, _F, _F, _F, _F,     # dt, half_dt, size_x, size_y, size_z
-        _F, _F,                 # log10_e, bucket_scale
-        _U, _U, _I,             # seed, poisson_step, t_steps
-        _I, _I, _I,             # depth, rounds, block2
-        _I, _F, _F, _F,         # model, t (boris rotation)
-        _F, _F, _F,             # s (boris rotation)
-        _P,                     # stream
+        *_PHASE_TAIL,
     ),
     "pst_worklog_open_blocks": (
         _I, _I, _P,             # block2, general, int* blocks
@@ -157,10 +155,8 @@ def nvcc_flags() -> list:
         "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
         "-fmad=false", "-Xptxas", "-v",
-        f"-DPST_N_STEPS={N_STEPS}",
-        f"-DPST_WORKLOG_TILE={TILE}",
-        f"-DPST_WORKLOG_REGIONS={LOOKBACK_REGIONS}",
-        f"-DPST_WORKLOG_RESULT_WORDS={len(RESULT)}", *kernel_defines(),
+        f"-DPST_N_STEPS={N_STEPS}", *worklog.kernel_defines(),
+        *push_mcc.kernel_defines(),
     ]
 
 

@@ -1,7 +1,7 @@
-"""The staged engine (scheduler ``dynamic_old``) and the pieces of
-``particle_simulation_tpu/ops/pallas/push_mcc.py`` that both engines share:
-the record layout, the phase-internal status encodings and the kernels'
-common arguments.
+"""The staged engine (scheduler ``dynamic_old``): the phase-internal status
+encodings of ``particle_simulation_tpu/ops/pallas/push_mcc.py``, the
+kernel's sizes, its ``Engine`` record and its plain PyTorch version;
+``engine.py`` drives the kernel.
 
 Counterpart of the JAX module:
 
@@ -38,53 +38,28 @@ TPU lookup ``make_chunked_lookup`` is ported as its outcome
 it returns what a direct ``table[energy_to_index(E)]`` read returns, and
 its chunk sweeps exist because the TPU has no per-lane gather.
 
-The model menu (integrator, b_field, collision_model, boundary) reaches
-both kernels through ``phys_args``: the ``MODEL_BITS`` of the selection and
-the boris rotation's constants.  Model 0, the reference, launches the
-instantiations of the main path; any other the general ones
-(csrc/physics.cuh).  The plain versions call ``update_particles`` with the
-same selection (``physics.model_args``).
-
-Records travel as (12, C) int32 stacks in ``FIELD_NAMES`` order, float
-fields as bit patterns.  The JAX (rows, 128) field planes, their window
-padding and the staging-budget depth clamp are not carried over: the port
-honours ``spawn_depth`` exactly.  Both kernels are compiled for spawn
-depths 1..4 and Threefry rounds 13 and 20 (``compiled``), the children in
-registers; every other (depth, rounds) runs their open instantiation,
-which reads both at run time and keeps a lane's children in a scratch
-buffer sized by the resident grid (``open_blocks``).
+The JAX (rows, 128) field planes, their window padding and the
+staging-budget depth clamp are not carried over: the port honours
+``spawn_depth`` exactly.  The record layout, the kernels' common
+arguments, the compiled set and the host code both engines share live
+in ``engine.py``; ``STAGED`` is this engine's record.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
 
-from ... import rng
-from ...config import SimConfig, f32_only
+from ...config import SimConfig
 from ...constants import STATUS_DEAD, STATUS_EMPTY
-from ...cross_section import BUCKET_SCALE, LOG10_E, N_STEPS
-from ...schedulers import pushes_info
 from ...state import SimState
-from ...utils.profiling import span, span_if
 from .. import population
-from ..physics import (
-    Particles, half, model_args, rotation, scalar, update_particles,
-)
+from ..physics import Particles, model_args, update_particles
 from ..population import is_live
-
-FIELD_NAMES = (
-    "px", "py", "pz", "vx", "vy", "vz", "ax", "ay", "az",
-    "status", "id_hi", "id_lo",
+from .engine import (
+    CHILD_WORDS, NF, Engine, Phase, check_f32, not_converged, pushes_info,
 )
-NF = len(FIELD_NAMES)
-
-MAX_DEPTH = 4        # spawn depths 1..MAX_DEPTH are compiled instantiations
-ROUNDS = (13, 20)    # and so are these Threefry round counts
-CHILD_WORDS = 9      # a Child of csrc/physics.cuh: 6 floats, stamp, id words
 
 _INF_START = 0x7FFFFFF
 
@@ -161,143 +136,6 @@ def stack_to_state(stack: torch.Tensor, n: int) -> SimState:
         status=stack[9].clone(), id_hi=stack[10].clone(),
         id_lo=stack[11].clone(), n=n,
     )
-
-
-def check_f32(state: SimState, engine: str) -> None:
-    """Raise ValueError for a float64 state (``precision="f64"``), with
-    the JAX package's message, before any buffer or launch."""
-    if state.pos.dtype != torch.float32 or state.vel.dtype != torch.float32:
-        raise ValueError(f32_only(engine))
-
-
-def compiled(config: SimConfig) -> bool:
-    """Whether the kernels have a compiled instantiation for the spawn
-    depth and the round count; any other pair runs the open one."""
-    return 1 <= config.spawn_depth <= MAX_DEPTH and config.rng_rounds in ROUNDS
-
-
-def check_kernel_args(config: SimConfig, table: torch.Tensor, device):
-    """Raise for what the kernels do not take: a spawn depth below 1 (as
-    ``config.check_supported`` does) or a table that is not a contiguous
-    float32 (10000, 2) tensor on ``device``."""
-    if config.spawn_depth < 1:
-        raise ValueError(f"spawn_depth={config.spawn_depth} must be >= 1")
-    if (table.device != device or table.dtype != torch.float32
-            or table.shape != (N_STEPS, 2) or not table.is_contiguous()):
-        raise ValueError(
-            "the table must be a contiguous float32 (10000, 2) tensor on "
-            f"{device}"
-        )
-
-
-@functools.lru_cache(maxsize=None)
-def _resident_blocks(symbol: str, device_index: int, *args) -> int:
-    from . import build
-
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        build.load().call(symbol, *args, ctypes.addressof(blocks))
-    return blocks.value
-
-
-def open_blocks(engine: str, config: SimConfig, device) -> int:
-    """The grid of ``engine``'s ("worklog" or "staged") open instantiation
-    at ``config``'s draw protocol, model and spawn depth on CUDA
-    ``device``: the blocks that can be resident at once, which its launch
-    takes and its children scratch is sized for (queried once a device).
-    Raises, with the depth and the shared memory, where a block does not
-    fit an SM."""
-    block2 = int(config.rng_mode == "block2")
-    general = int(model_bits(config) != 0)
-    index = torch.device(device).index or 0
-    extra = (config.spawn_depth,) if engine == "staged" else ()
-    try:
-        return _resident_blocks(f"pst_{engine}_open_blocks", index, block2,
-                                general, *extra)
-    except RuntimeError as e:
-        smem = N_STEPS * 8 + 8 * config.spawn_depth * (engine == "staged")
-        raise RuntimeError(
-            f"the {engine} engine's open instantiation at spawn_depth="
-            f"{config.spawn_depth} ({smem} B of dynamic shared memory a "
-            f"block) has no resident grid: {e}") from e
-
-
-# the bits of PhysConsts::model (csrc/physics.cuh kBoris ... kPeriodic); 0,
-# the reference model, runs the kernels' reference instantiations, any
-# other value their general ones
-MODEL_BITS = {"boris": 1, "magnetized": 2, "isotropic": 4, "periodic": 8}
-
-
-def model_bits(config: SimConfig) -> int:
-    """The model selections of ``config`` as PhysConsts::model bits."""
-    boris = config.integrator == "boris"
-    return (MODEL_BITS["boris"] * boris
-            | MODEL_BITS["magnetized"] * (
-                boris and rotation(config.b_field, config.mobility_dt)
-                is not None)
-            | MODEL_BITS["isotropic"] * (config.collision_model == "isotropic")
-            | MODEL_BITS["periodic"] * (config.boundary == "periodic"))
-
-
-def phys_args(config: SimConfig, poisson_step: int, t_steps: int) -> tuple:
-    """The kernels' physics arguments: dt, half_dt, sim_size, log10_e,
-    bucket_scale, seed, poisson_step, t_steps, spawn_depth, rounds,
-    block2, the model bits and the boris rotation's t and s (zeros without
-    a field)."""
-    sx, sy, sz = (scalar(s) for s in config.sim_size)
-    bits = model_bits(config)
-    rot = (rotation(config.b_field, config.mobility_dt)
-           if bits & MODEL_BITS["magnetized"] else ((0.0,) * 3,) * 2)
-    return (
-        scalar(config.mobility_dt), half(config.mobility_dt), sx, sy, sz,
-        float(LOG10_E), float(BUCKET_SCALE),
-        config.seed & rng.MASK, poisson_step & rng.MASK, t_steps,
-        config.spawn_depth, config.rng_rounds,
-        int(config.rng_mode == "block2"), bits, *rot[0], *rot[1],
-    )
-
-
-def empty_state(capacity: int, device) -> SimState:
-    """An uninitialised state of ``capacity`` slots on ``device``, n = 0:
-    the output a phase kernel writes."""
-    vec3 = lambda: torch.empty((capacity, 3), dtype=torch.float32,
-                               device=device)
-    word = lambda: torch.empty((capacity,), dtype=torch.int32, device=device)
-    return SimState(vec3(), vec3(), vec3(), word(), word(), word(), n=0)
-
-
-def state_buffers(prefix: str, st: SimState, c: int) -> list:
-    """The (name, tensor, dtype, shape) entries of a state's six tensors at
-    capacity ``c``, for ``check_buffers``."""
-    return [
-        *((f"{prefix}.{f}", getattr(st, f), torch.float32, (c, 3))
-          for f in ("pos", "vel", "acc")),
-        *((f"{prefix}.{f}", getattr(st, f), torch.int32, (c,))
-          for f in ("status", "id_hi", "id_lo")),
-    ]
-
-
-def check_buffers(what: str, device: torch.device, want: list) -> None:
-    """Raise ValueError unless every (name, tensor, dtype, shape) of
-    ``want`` is a contiguous CUDA tensor of that dtype and shape on
-    ``device``: each property over every buffer, the device last."""
-    faults = (
-        lambda t, dtype, shape: t.dtype != dtype and f"dtype {t.dtype}",
-        lambda t, dtype, shape: (tuple(t.shape) != shape
-                                 and f"shape {tuple(t.shape)}"),
-        lambda t, dtype, shape: not t.is_contiguous() and "not contiguous",
-        lambda t, dtype, shape: ((t.device.type != "cuda"
-                                  or t.device != device)
-                                 and f"on {t.device}"),
-    )
-    for fault in faults:
-        for name, t, dtype, shape in want:
-            why = fault(t, dtype, shape)
-            if why:
-                raise ValueError(
-                    f"{what}: {name} must be a contiguous {dtype} CUDA "
-                    f"tensor of shape {shape} on the state's device; it is "
-                    f"{why}")
 
 
 # ---------------------------------------------------------------------------
@@ -420,11 +258,6 @@ def _staged_checks(state: SimState, t_steps: int) -> None:
         )
 
 
-def _not_converged(t_steps: int) -> RuntimeError:
-    return RuntimeError(
-        f"staged engine did not converge in {t_steps + 1} passes")
-
-
 def staged_fixed_point(state: SimState, poisson_step: int, table,
                        config: SimConfig, t_steps: int):
     """The work-list fixed point on the host, on any device: plain passes
@@ -442,7 +275,7 @@ def staged_fixed_point(state: SimState, poisson_step: int, table,
         # start of pass k, so a phase needs at most t_steps + 1 passes
         passes += 1
         if passes > t_steps + 1:
-            raise _not_converged(t_steps)
+            raise not_converged("staged", t_steps)
         tot = staged_pass_plain(stack, n, table, config, poisson_step, t_steps)
         n = tot.n
         pushes += tot.pushes
@@ -500,152 +333,70 @@ STAGED_RESULT = ("n", "n_live", "pushes", "passes", "reclaimed", "reclaims",
                  "stuck", "blocks")
 
 
-def staged_scratch_shapes(capacity: int, depth: int,
+def staged_scratch_shapes(config: SimConfig, capacity: int,
                           kid_blocks: int = 0) -> dict:
-    """Shapes of the phase's scratch buffers: two record stacks (the
-    reclaim compacts one into the other), two sets of staging regions of C
-    children a depth and two work lists (a pass reads one and writes the
-    other), the look-back words (per region a ticket, a counter, then a
-    word per stream and sweep tile of C slots: a stream per depth and one
+    """Shapes and dtypes of the phase's scratch buffers: two record stacks
+    (the reclaim compacts one into the other), two sets of staging regions
+    of C children a depth and two work lists (a pass reads one and writes
+    the other), the look-back words (per region a ticket, a counter, then
+    a word per stream and sweep tile of C slots: a stream per depth and one
     for the suspended lanes) and the result words; with ``kid_blocks``, the
     open instantiation's children scratch for a grid of that many blocks.
     The number of passes sizes nothing."""
+    depth = config.spawn_depth
     tiles = -(-capacity // STAGED_TILE)
     shapes = {
-        "stacks": (2, NF, capacity),
-        "stage": (2, depth, NF, capacity),
-        "list": (2, capacity),
-        "lookback": (STAGED_REGIONS, REGION_HEADER + (depth + 1) * tiles),
-        "result": (len(STAGED_RESULT),),
+        "stacks": ((2, NF, capacity), torch.int32),
+        "stage": ((2, depth, NF, capacity), torch.int32),
+        "list": ((2, capacity), torch.int32),
+        "lookback": ((STAGED_REGIONS, REGION_HEADER + (depth + 1) * tiles),
+                     torch.int64),
+        "result": ((len(STAGED_RESULT),), torch.int64),
     }
     if kid_blocks:
-        shapes["kids"] = (depth, kid_blocks * STAGED_TILE, CHILD_WORDS)
+        shapes["kids"] = ((depth, kid_blocks * STAGED_TILE, CHILD_WORDS),
+                          torch.int32)
     return shapes
 
 
 class StagedBuffers(NamedTuple):
-    """What the kernel writes: the output state and its scratch."""
+    """What the kernel writes: the output state and its scratch
+    (``staged_scratch_shapes``)."""
 
     out: SimState
-    stacks: torch.Tensor    # (2, 12, C) int32
-    stage: torch.Tensor     # (2, depth, 12, C) int32
-    list: torch.Tensor      # (2, C) int32
-    lookback: torch.Tensor  # (regions, header + (depth + 1) * tiles) int64
-    result: torch.Tensor    # (len(STAGED_RESULT),) int64
-    # the open instantiation's children (depth, threads, CHILD_WORDS)
-    # int32; None launches the compiled one
+    stacks: torch.Tensor
+    stage: torch.Tensor
+    list: torch.Tensor
+    lookback: torch.Tensor
+    result: torch.Tensor
+    # the open instantiation's children; None launches the compiled one
     kids: Optional[torch.Tensor] = None
 
 
-_SCRATCH_DTYPES = {"stacks": torch.int32, "stage": torch.int32,
-                   "list": torch.int32, "lookback": torch.int64,
-                   "result": torch.int64, "kids": torch.int32}
-
-
-def staged_buffers(state: SimState, config: SimConfig,
-                   kid_blocks: int = 0) -> StagedBuffers:
-    """Uninitialised buffers for one phase on the state's device (the
-    kernel writes or zeroes what it reads); with ``kid_blocks``, for the
-    open instantiation on a grid of that many blocks."""
-    shapes = staged_scratch_shapes(state.capacity, config.spawn_depth,
-                                   kid_blocks)
-    return StagedBuffers(empty_state(state.capacity, state.device), **{
-        name: torch.empty(shape, dtype=_SCRATCH_DTYPES[name],
-                          device=state.device)
-        for name, shape in shapes.items()
-    })
-
-
-def staged_phase(lib, state: SimState, bufs: StagedBuffers, table,
-                 config: SimConfig, poisson_step: int, t_steps: int) -> None:
-    """Launch one whole staged mobility phase on the current stream: the
-    ``state.n`` created slots of ``state`` (read, never written) through
-    every pass, reclaim and append to the compacted output ``bufs.out``;
-    ``bufs.result`` receives the ``STAGED_RESULT`` words.  With
-    ``bufs.kids`` the open instantiation runs (on as many blocks as the
-    scratch was sized for), else the compiled one; any model but the
-    reference launches the general instantiation, inside the span
-    ``pst.mobility.general``.  Raises before any launch on a buffer the
-    kernel does not take."""
-    kid_blocks = 0 if bufs.kids is None else bufs.kids.shape[1] // STAGED_TILE
-    shapes = staged_scratch_shapes(state.capacity, config.spawn_depth,
-                                   kid_blocks)
-    check_buffers("staged phase", state.device, [
-        *state_buffers("state", state, state.capacity),
-        *state_buffers("out", bufs.out, state.capacity),
-        *((name, getattr(bufs, name), _SCRATCH_DTYPES[name], shape)
-          for name, shape in shapes.items()),
-    ])
-    out = bufs.out
-    kids = () if bufs.kids is None else (bufs.kids.data_ptr(), kid_blocks)
-    general = model_bits(config) != 0
-    with span("pst.mobility.launch"), span_if(general, "pst.mobility.general"):
-        lib.call(
-            "pst_staged_phase_open" if kids else "pst_staged_phase",
-            state.pos.data_ptr(), state.vel.data_ptr(), state.acc.data_ptr(),
-            state.status.data_ptr(), state.id_hi.data_ptr(),
-            state.id_lo.data_ptr(), state.n,
-            out.pos.data_ptr(), out.vel.data_ptr(), out.acc.data_ptr(),
-            out.status.data_ptr(), out.id_hi.data_ptr(), out.id_lo.data_ptr(),
-            state.capacity, bufs.stacks.data_ptr(), bufs.stage.data_ptr(),
+def _scratch_args(bufs: StagedBuffers, config: SimConfig) -> tuple:
+    return (bufs.stacks.data_ptr(), bufs.stage.data_ptr(),
             bufs.list.data_ptr(), bufs.lookback.data_ptr(),
             (bufs.lookback.shape[1] - REGION_HEADER)
-            // (config.spawn_depth + 1),
-            bufs.result.data_ptr(), table.data_ptr(),
-            *phys_args(config, poisson_step, t_steps), *kids,
-            torch.cuda.current_stream(state.device).cuda_stream,
-        )
-    staged_phase.launches += 1
-    staged_phase.open_launches += bool(kids)
-    staged_phase.general_launches += general
+            // (config.spawn_depth + 1))
 
 
-staged_phase.launches = 0
-staged_phase.open_launches = 0  # of them, launches of the open instantiation
-# of them, launches of the general instantiation, compiled or open
-staged_phase.general_launches = 0
-staged_phase.passes = 0    # passes the kernel counted, over every phase
-staged_phase.reclaims = 0  # reclaims the kernel made, over every phase
-staged_phase.last = {}     # the last phase's STAGED_RESULT words
-
-
-def run_staged_phase(state: SimState, bufs: StagedBuffers, poisson_step: int,
-                     table, config: SimConfig, t_steps: int):
-    """One phase of a CUDA state with ``state.n_clamped > 0`` into
-    ``bufs`` (``staged_buffers``: sized with ``kid_blocks``, they run the
-    open instantiation, else the compiled one), then the one readback of the
-    result words: ``mobility_phase_dynamic``'s (state, info).  Raises
-    where the phase did not converge."""
-    from . import build
-
-    staged_phase(build.load(), state, bufs, table, config, poisson_step,
-                 t_steps)
-    with span("pst.mobility.readback"):
-        # the one readback
-        r = dict(zip(STAGED_RESULT, bufs.result.tolist()))
-    staged_phase.passes += r["passes"]
-    staged_phase.reclaims += r["reclaims"]
-    staged_phase.last = r
-    if r["stuck"]:
-        raise _not_converged(t_steps)
-    return bufs.out._replace(n=r["n_live"]), _phase_info(
+def _finish(state: SimState, out: SimState, r: dict):
+    return out._replace(n=r["n_live"]), _phase_info(
         state.n_clamped, r["n"], state.capacity, r["n_live"],
         r["reclaimed"], r["pushes"], r["passes"])
 
 
-def _mobility_phase_dynamic_cuda(state: SimState, poisson_step: int, table,
-                                 config: SimConfig, t_steps: int):
-    _staged_checks(state, t_steps)
-    check_kernel_args(config, table, state.device)
-    if state.n_clamped == 0:
-        return SimState(*(torch.zeros_like(t) for t in state[:6]), n=0), \
-            _phase_info(0, state.n, state.capacity, 0, 0, 0, 0)
-    kid_blocks = (0 if compiled(config)
-                  else open_blocks("staged", config, state.device))
-    with span("pst.mobility.alloc"):
-        bufs = staged_buffers(state, config, kid_blocks)
-    return run_staged_phase(state, bufs, poisson_step, table, config,
-                            t_steps)
+STAGED = Engine(
+    name="staged", label="staged", tile=STAGED_TILE, buffers=StagedBuffers,
+    scratch=staged_scratch_shapes, scratch_args=_scratch_args,
+    n0=lambda state: state.n, result=STAGED_RESULT, finish=_finish,
+    plain=mobility_phase_dynamic_plain, check=_staged_checks,
+    counters=("passes", "reclaims"),
+)
+# the launch: (lib, state, bufs, table, config, poisson_step, t_steps), the
+# ``state.n`` created slots through every pass, reclaim and append to the
+# compacted output
+staged_phase = Phase(STAGED)
 
 
 def mobility_phase_dynamic(state: SimState, poisson_step: int, table,
@@ -654,16 +405,7 @@ def mobility_phase_dynamic(state: SimState, poisson_step: int, table,
     state and info (added, removed, overflow, reclaimed, passes, pushes_lo,
     pushes_hi).  A CPU state takes the plain version; a CUDA state
     launches the kernel or raises.  A float64 state raises first."""
-    check_f32(state, "staged")
-    if state.device.type == "cpu":
-        return mobility_phase_dynamic_plain(
-            state, poisson_step, table, config, t_steps
-        )
-    if state.device.type != "cuda":
-        raise ValueError(f"no staged engine for device {state.device}")
-    return _mobility_phase_dynamic_cuda(
-        state, poisson_step, table, config, t_steps
-    )
+    return staged_phase.mobility(state, poisson_step, table, config, t_steps)
 
 
 mobility_phase_dynamic.self_compacting = True

@@ -1,6 +1,7 @@
 """What the probes share: CUDA-event timing (warm, and cold past the L2),
 the card's name and power limit, and the least time an H100 could take
-for a given work."""
+for a given work, with the port's count of that work: the operations of a
+push (``ops_per_push``) and the bytes of a record."""
 
 from __future__ import annotations
 
@@ -17,6 +18,16 @@ F32_OPS_PER_S = 67e12  # float32 outside the tensor cores; an FMA counts two
 SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep spins SM clock cycles (1.98 GHz)
 MAX_SPIN_S = 1.0
 L2_BYTES = 50 * 2**20  # the H100's L2 cache
+
+# operations of the bound's count (csrc/physics.cuh and threefry.cuh, an
+# FMA counted as two and logf as one): a lane-step's moves, lookup and
+# draw outside the cipher (44: the main path's count of 70 a push less its
+# share of the 13-round block), and a Threefry block of R rounds, 3 a round
+# (add, rotate, xor), 3 a key injection every 4 rounds and 4 to set up the
+# key schedule and the first injection
+LANE_STEP_OPS = 44
+THREEFRY_ROUND_OPS, THREEFRY_INJECTION_OPS, THREEFRY_SETUP_OPS = 3, 3, 4
+RECORD_BYTES = 48    # a particle: pos, vel, acc (3 x 12) + status, id_hi, id_lo
 
 
 class Timing(NamedTuple):
@@ -41,6 +52,14 @@ def bound_ms(n_bytes: float, n_ops: float) -> Tuple[float, str]:
     terms, and which sets it ("bytes" or "operations")."""
     by_bytes, by_ops = bound_terms(n_bytes, n_ops)
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def ops_per_push(rounds: int, block2: bool) -> float:
+    """Operations a lane-step of the reference engines does at ``rounds``
+    Threefry rounds; under block2 two steps share a block."""
+    block = (THREEFRY_ROUND_OPS * rounds
+             + THREEFRY_INJECTION_OPS * (rounds // 4) + THREEFRY_SETUP_OPS)
+    return LANE_STEP_OPS + block / (2 if block2 else 1)
 
 
 def _queued_ms(call: Callable[[int], object], reps: int) -> float:

@@ -23,8 +23,8 @@ loads:
 ``--spawn-depth`` and ``--rng-rounds`` outside the engines' compiled set
 (depth 1-4, rounds 13 and 20) run their open instantiations; ``--open``
 runs those at any pair (each phase on buffers sized for the open grid,
-``run_worklog_phase`` and ``run_staged_phase``, in checkouts that have
-them).
+through ``ops/kernels/engine.py``'s ``Phase``, in checkouts that have
+it).
 
 To compare two trees, run them in turns in one call (parent, change,
 change, parent): one card, one power limit.
@@ -41,11 +41,10 @@ MAIN = dict(init_n=1_000_000, capacity=2_000_000, poisson_timestep=100,
             grid_size=(256, 256, 256))
 
 
-# scheduler -> (module, phase on given buffers, their allocator, engine)
+# scheduler -> (module, its engine's Phase)
 OPEN_PHASES = {
-    "dynamic": ("worklog", "run_worklog_phase", "phase_buffers", "worklog"),
-    "dynamic_old": ("push_mcc", "run_staged_phase", "staged_buffers",
-                    "staged"),
+    "dynamic": ("worklog", "worklog_phase"),
+    "dynamic_old": ("push_mcc", "staged_phase"),
 }
 
 
@@ -54,16 +53,16 @@ def open_phase(scheduler: str):
     (depth, rounds): the buffers sized for the open grid."""
     import importlib
 
-    module, run, buffers, engine = OPEN_PHASES[scheduler]
-    mod = importlib.import_module(
-        f"particle_simulation_tpu_torch.ops.kernels.{module}")
-    pm = importlib.import_module(
-        "particle_simulation_tpu_torch.ops.kernels.push_mcc")
+    module, name = OPEN_PHASES[scheduler]
+    launch = getattr(importlib.import_module(
+        f"particle_simulation_tpu_torch.ops.kernels.{module}"), name)
+    engine = importlib.import_module(
+        "particle_simulation_tpu_torch.ops.kernels.engine")
 
     def phase(state, step, table, cfg, t_steps):
-        blocks = pm.open_blocks(engine, cfg, state.device)
-        return getattr(mod, run)(state, getattr(mod, buffers)(
-            state, cfg, blocks), step, table, cfg, t_steps)
+        blocks = engine.open_blocks(launch.engine.name, cfg, state.device)
+        return launch.run(state, launch.buffers(state, cfg, blocks), step,
+                          table, cfg, t_steps)
 
     phase.self_compacting = True
     return phase

@@ -29,16 +29,10 @@ import torch
 
 from .config import SimConfig
 from .ops import population
+from .ops.kernels.engine import PUSH_BASE, pushes_info  # noqa: F401
 from .ops.physics import model_args, update_particles
 from .ops.step import active_mask, state_to_particles
 from .state import SimState
-
-PUSH_BASE = 1 << 30
-
-
-def pushes_info(total: int) -> dict:
-    """An exact push count as the base-2^30 pair of the JAX package."""
-    return {"pushes_lo": total % PUSH_BASE, "pushes_hi": total // PUSH_BASE}
 
 
 def _one_step(state: SimState, t: int, poisson_step: int, table, config,

@@ -15,7 +15,7 @@ import torch
 from particle_simulation_tpu_torch import SimConfig
 from particle_simulation_tpu_torch.config import check_supported
 from particle_simulation_tpu_torch.cross_section import argon_like_table
-from particle_simulation_tpu_torch.ops.kernels.push_mcc import model_bits
+from particle_simulation_tpu_torch.ops.kernels.engine import model_bits
 
 BENCH_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmark")

@@ -81,7 +81,8 @@ def chain_window(pos, status, m, S):
     """(origin, fits, flat ids, weight) of the PyTorch chain."""
     weight = population.is_live(status[:m]).to(torch.int32)
     idx = grid_ops.cell_indices(pos[:m], CELL, GRID)
-    origin, fits = grid_ops.bbox_window(idx, weight, GRID, S)
+    origin, fits = grid_ops.fit_window(
+        *grid_ops.live_bbox(idx, weight, GRID), GRID, S)
     return origin, fits, idx, weight
 
 

@@ -42,6 +42,7 @@ MODULES = [
     "particle_simulation_tpu_torch.ops.step",
     "particle_simulation_tpu_torch.ops.kernels.build",
     "particle_simulation_tpu_torch.ops.kernels.compact",
+    "particle_simulation_tpu_torch.ops.kernels.engine",
     "particle_simulation_tpu_torch.ops.kernels.field",
     "particle_simulation_tpu_torch.ops.kernels.lookup_bench",
     "particle_simulation_tpu_torch.ops.kernels.push_mcc",

@@ -14,11 +14,10 @@ import torch
 
 from particle_simulation_tpu_torch import SimConfig, cross_section
 from particle_simulation_tpu_torch.cross_section import bundled_paths, load_table
-from particle_simulation_tpu_torch.ops.kernels import build
+from particle_simulation_tpu_torch.ops.kernels import build, engine
 from particle_simulation_tpu_torch.ops.kernels import push_mcc as pm
 from particle_simulation_tpu_torch.ops.kernels.worklog import (
-    mobility_phase_worklog, mobility_phase_worklog_plain, phase_buffers,
-    run_worklog_phase, worklog_phase,
+    mobility_phase_worklog, mobility_phase_worklog_plain, worklog_phase,
 )
 from particle_simulation_tpu_torch.ops.step import grid_phase
 from particle_simulation_tpu_torch.runtime import multiset_with_ids
@@ -122,11 +121,12 @@ def _overflow_phase(cfg, table, st, opened):
     if not opened:
         return mobility_phase_worklog(st, 0, table, cfg, cfg.poisson_timestep)
     opened_before = worklog_phase.open_launches
-    bufs = phase_buffers(st, cfg, pm.open_blocks("worklog", cfg, st.device))
-    out, info = run_worklog_phase(st, bufs, 0, table, cfg,
+    bufs = worklog_phase.buffers(st, cfg, engine.open_blocks(
+        "worklog", cfg, st.device))
+    out, info = worklog_phase.run(st, bufs, 0, table, cfg,
                                   cfg.poisson_timestep)
     assert worklog_phase.open_launches - opened_before == 1
-    if pm.compiled(cfg):
+    if engine.compiled(cfg):
         ref, ref_info = mobility_phase_worklog(st, 0, table, cfg,
                                                cfg.poisson_timestep)
         assert ref_info == info and ref.n == out.n
@@ -170,7 +170,8 @@ def test_open_variants_match_plain(dev, depth, rounds, model):
     instantiation runs, one launch a phase, equal to the plain version."""
     models = MAGNETIZED_ARGON if model == "general" else {}
     cfg = SimConfig(**CHURN, **models, spawn_depth=depth, rng_rounds=rounds)
-    assert not pm.compiled(cfg) and (pm.model_bits(cfg) != 0) == bool(models)
+    assert not engine.compiled(cfg) and (
+        engine.model_bits(cfg) != 0) == bool(models)
     table = load_table(bundled_paths()[1], dev)
     launches, opened = worklog_phase.launches, worklog_phase.open_launches
     assert _compare(cfg, table, dev)["added"] > 0
@@ -208,7 +209,7 @@ def test_models_match_plain_both_engines(dev, model, depth):
     cfg = SimConfig(**CHURN, **MODELS[model], spawn_depth=depth)
     table = load_table(bundled_paths()[1], dev)
     # the thermal start changes the seed state, not the kernel's path
-    assert pm.model_bits(cfg) != 0 or model == "thermal"
+    assert engine.model_bits(cfg) != 0 or model == "thermal"
     st = setup_particles(cfg, device=dev)
     for s in range(2):
         st = grid_phase(st, cfg)

@@ -17,6 +17,7 @@ import torch
 from particle_simulation_tpu import cross_section as jcs
 from particle_simulation_tpu.ops.pallas import push_mcc as jpm
 from particle_simulation_tpu_torch import cross_section as tcs
+from particle_simulation_tpu_torch.ops.kernels import engine
 from particle_simulation_tpu_torch.ops.kernels import push_mcc as tpm
 
 MAX_MISMATCH_FRACTION = 1e-4
@@ -74,7 +75,7 @@ def test_status_encodings_match():
             assert tpm._is_suspended(s) and tpm._is_unfinished(s)
             assert tpm._suspended_resume(s) == resume
             assert tpm._suspended_stamp(s) == stamp
-    assert tpm.FIELD_NAMES == jpm.FIELD_NAMES
+    assert engine.FIELD_NAMES == jpm.FIELD_NAMES
     assert tpm._INF_START == jpm._INF_START
     assert not tpm._is_unfinished(-2) and not tpm._is_unfinished(0)
 

@@ -310,15 +310,15 @@ def test_wrap_periodic_matches_jax():
 
 
 def test_kernel_arguments_carry_the_models():
-    """What the CUDA engines receive (push_mcc.phys_args): model 0 for the
+    """What the CUDA engines receive (engine.phys_args): model 0 for the
     reference, the bits of each selection, and the rotation's constants
     (``rotation``, bitwise JAX's make_kick) only with a field."""
-    from particle_simulation_tpu_torch.ops.kernels import push_mcc
+    from particle_simulation_tpu_torch.ops.kernels import engine
 
     def args(**kw):
-        return push_mcc.phys_args(SimConfig(**kw), 0, 10)
+        return engine.phys_args(SimConfig(**kw), 0, 10)
 
-    bits = push_mcc.MODEL_BITS
+    bits = engine.MODEL_BITS
     assert args()[13:] == (0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
     assert args(init_vth=2e6, field_model="fft")[13] == 0
     assert args(b_field=(0.0, 0.0, 1e9))[13] == 0  # leapfrog ignores B

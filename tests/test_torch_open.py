@@ -35,7 +35,7 @@ from particle_simulation_tpu.cross_section import write_table
 from particle_simulation_tpu.ops.step import poisson_step as j_step
 from particle_simulation_tpu_torch import SimConfig, interop
 from particle_simulation_tpu_torch.cross_section import load_table
-from particle_simulation_tpu_torch.ops.kernels import build
+from particle_simulation_tpu_torch.ops.kernels import build, engine
 from particle_simulation_tpu_torch.ops.kernels import push_mcc as tpm
 from particle_simulation_tpu_torch.ops.step import poisson_step
 from particle_simulation_tpu_torch.runtime import multiset_with_ids
@@ -91,7 +91,7 @@ def _assert_same(port, ref, churn=True):
 def test_pallas_config_matches_jax_sync(scheduler):
     """tests/test_pallas.py's own configuration (spawn depth 6), which the
     kernels run through their open instantiations."""
-    assert not tpm.compiled(SimConfig(**PALLAS))
+    assert not engine.compiled(SimConfig(**PALLAS))
     _assert_same(_port("pallas", scheduler), _jax("pallas", "sync"))
 
 
@@ -152,10 +152,10 @@ def test_compiled_set_and_kernel_args():
     for depth, rounds, fixed in ((2, 13, True), (4, 20, True), (5, 13, False),
                                  (2, 12, False), (16, 0, False)):
         cfg = SimConfig(spawn_depth=depth, rng_rounds=rounds)
-        assert tpm.compiled(cfg) == fixed
-        tpm.check_kernel_args(cfg, table, table.device)
+        assert engine.compiled(cfg) == fixed
+        engine.check_kernel_args(cfg, table, table.device)
     with pytest.raises(ValueError, match="spawn_depth"):
-        tpm.check_kernel_args(SimConfig(spawn_depth=0), table, table.device)
+        engine.check_kernel_args(SimConfig(spawn_depth=0), table, table.device)
 
 
 def test_open_scratch_shapes():
@@ -166,9 +166,9 @@ def test_open_scratch_shapes():
     cfg = SimConfig(spawn_depth=6)
     assert "kids" not in worklog.scratch_shapes(cfg, 4096)
     assert worklog.scratch_shapes(cfg, 4096, 264)["kids"] == (
-        6, 264 * worklog.TILE, 9)
-    assert tpm.staged_scratch_shapes(4096, 6, 132)["kids"] == (
-        6, 132 * tpm.STAGED_TILE, 9)
+        (6, 264 * worklog.TILE, 9), torch.int32)
+    assert tpm.staged_scratch_shapes(cfg, 4096, 132)["kids"] == (
+        (6, 132 * tpm.STAGED_TILE, 9), torch.int32)
     # the open symbols take the compiled ones' arguments, then the scratch
     # and its blocks before the stream
     for name in ("pst_worklog_phase", "pst_staged_phase"):

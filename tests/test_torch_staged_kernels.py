@@ -16,7 +16,7 @@ import torch
 
 from particle_simulation_tpu_torch import SimConfig
 from particle_simulation_tpu_torch.cross_section import bundled_paths, load_table
-from particle_simulation_tpu_torch.ops.kernels import build
+from particle_simulation_tpu_torch.ops.kernels import build, engine
 from particle_simulation_tpu_torch.ops.kernels import push_mcc as pm
 from particle_simulation_tpu_torch.ops.step import grid_phase, poisson_step
 from particle_simulation_tpu_torch.runtime import multiset_with_ids
@@ -50,9 +50,9 @@ def _phase(cfg, table, st, s=0, opened=False):
     ``opened``: the kernel through the open instantiation at any pair."""
     if opened:
         before = pm.staged_phase.open_launches
-        bufs = pm.staged_buffers(st, cfg, pm.open_blocks("staged", cfg,
-                                                         st.device))
-        k, ki = pm.run_staged_phase(st, bufs, s, table, cfg,
+        bufs = pm.staged_phase.buffers(st, cfg, engine.open_blocks(
+            "staged", cfg, st.device))
+        k, ki = pm.staged_phase.run(st, bufs, s, table, cfg,
                                     cfg.poisson_timestep)
         assert pm.staged_phase.open_launches - before == 1
     else:
@@ -197,7 +197,8 @@ def test_open_variants_match_plain(dev, depth, rounds, model):
     open instantiation takes two streams at a time."""
     models = MAGNETIZED_ARGON if model == "general" else {}
     cfg = SimConfig(**CHURN, **models, spawn_depth=depth, rng_rounds=rounds)
-    assert not pm.compiled(cfg) and (pm.model_bits(cfg) != 0) == bool(models)
+    assert not engine.compiled(cfg) and (
+        engine.model_bits(cfg) != 0) == bool(models)
     table = load_table(bundled_paths()[1], dev)
     st = setup_particles(cfg, device=dev)
     launches, opened = pm.staged_phase.launches, pm.staged_phase.open_launches

@@ -220,21 +220,20 @@ def _launch(engine, cfg, monkeypatch):
     and the library stood in for: (the function, the library)."""
     from types import SimpleNamespace
 
-    from particle_simulation_tpu_torch.ops.kernels import push_mcc, worklog
+    from particle_simulation_tpu_torch.ops.kernels import (
+        engine as engines, push_mcc, worklog,
+    )
     from particle_simulation_tpu_torch.state import setup_particles
 
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(engines, "check_buffers", lambda *a: None)
     st = setup_particles(cfg, device="cpu")
     table = torch.zeros((10000, 2), dtype=torch.float32)
     lib = _Lib()
-    if engine == "worklog":
-        monkeypatch.setattr(worklog, "_check_buffers", lambda *a: None)
-        fn, bufs = worklog.worklog_phase, worklog.phase_buffers(st, cfg)
-    else:
-        monkeypatch.setattr(push_mcc, "check_buffers", lambda *a: None)
-        fn, bufs = push_mcc.staged_phase, push_mcc.staged_buffers(st, cfg)
-    fn(lib, st, bufs, table, cfg, 0, cfg.poisson_timestep)
+    fn = (worklog.worklog_phase if engine == "worklog"
+          else push_mcc.staged_phase)
+    fn(lib, st, fn.buffers(st, cfg), table, cfg, 0, cfg.poisson_timestep)
     return fn, lib
 
 

@@ -21,7 +21,7 @@ from particle_simulation_tpu_torch.ops.kernels.push_mcc import (
 )
 from particle_simulation_tpu_torch.ops.kernels.worklog import (
     LOOKBACK_REGIONS, RESULT, TILE, mobility_phase_worklog,
-    mobility_phase_worklog_plain, phase_buffers, scratch_shapes,
+    mobility_phase_worklog_plain, scratch_shapes,
     work_capacity, worklog_phase,
 )
 from particle_simulation_tpu_torch.ops.step import grid_phase, poisson_step
@@ -126,37 +126,8 @@ def test_scratch_shapes(capacity, rows, w_cap, largest, depth, t_steps):
     tiles = -(-largest // TILE)
     assert (tiles - 1) * TILE < largest <= tiles * TILE
     assert scratch_shapes(cfg, capacity) == {
-        "logs": (2, 12, w_cap),
-        "lookback": (LOOKBACK_REGIONS, 1 + 2 * tiles),
-        "result": (7,),
+        "logs": ((2, 12, w_cap), torch.int32),
+        "lookback": ((LOOKBACK_REGIONS, 1 + 2 * tiles), torch.int64),
+        "result": ((7,), torch.int64),
     }
     assert LOOKBACK_REGIONS == 3 and len(RESULT) == 7
-
-
-def _cpu_buffers():
-    cfg = SimConfig(**BASE, scheduler="dynamic")
-    st = setup_particles(cfg, device="cpu")
-    return cfg, st, phase_buffers(st, cfg)
-
-
-@pytest.mark.parametrize("bad,why", [
-    (lambda st, b: (st, b), "on cpu"),
-    (lambda st, b: (st, b._replace(logs=b.logs.float())), "dtype"),
-    (lambda st, b: (st, b._replace(result=b.result.int())), "dtype"),
-    (lambda st, b: (st._replace(status=st.status.long()), b), "dtype"),
-    (lambda st, b: (st, b._replace(
-        lookback=b.lookback.t().contiguous().t())), "not contiguous"),
-    (lambda st, b: (st._replace(pos=st.pos.t().contiguous().t()), b),
-     "not contiguous"),
-    (lambda st, b: (st, b._replace(logs=b.logs[:, :, :-1])), "shape"),
-])
-def test_phase_wrapper_checks_buffers_before_any_launch(bad, why):
-    """No library is given: a check that let the call through would fail
-    on it, not raise ValueError."""
-    cfg, st, bufs = _cpu_buffers()
-    st, bufs = bad(st, bufs)
-    before = worklog_phase.launches
-    with pytest.raises(ValueError, match=why):
-        worklog_phase(None, st, bufs, load_table(bundled_paths()[1], "cpu"),
-                      cfg, 0, 6)
-    assert worklog_phase.launches == before
