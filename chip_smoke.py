@@ -363,6 +363,17 @@ SETUP_REPS, SETUP_PLAIN_REPS = 20, 3
 SYNC_CALLS = ("Synchronize", "cudaMemcpy", "cuMemcpy")
 
 
+def reuses(name: str, phase, since=(0, 0)) -> str:
+    """An engine's ``out_reuses`` since its (launches, out_reuses) were
+    ``since``: the launches on a kept output cleared to less than the
+    capacity, and their share of the launches."""
+    launches = phase.launches - since[0]
+    hits = phase.out_reuses - since[1]
+    share = hits / launches if launches else 0.0
+    return (f"{name} out_reuses {hits} of {launches} launches (hit share "
+            f"{share:.2f})")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -792,7 +803,7 @@ def models_on_card(dev, repo: str) -> dict:
         st = setup_particles(cfg, device=dev)
         for _, _, _, wrapper in engines:
             wrapper.launches = wrapper.general_launches = 0
-            wrapper.passes = 0
+            wrapper.passes = wrapper.out_reuses = 0
         phase_ms = {"worklog": [], "staged": []}
         step_ms, work, n_after = [], [], []
         for s in range(4):
@@ -854,7 +865,8 @@ def models_on_card(dev, repo: str) -> dict:
               f"9b: general launches {general}, main instantiation's "
               f"{main} in 4 phases of each engine")
         log(f"9b: general_launches {general}, the main instantiation's "
-            f"launches {main}")
+            f"launches {main}; "
+            + "; ".join(reuses(label, w) for label, _, _, w in engines))
         live = torch.cat([st.pos[: st.n], st.vel[: st.n], st.acc[: st.n]], 1)
         check(bool(torch.isfinite(live).all()), "9b: non-finite state")
         check(bool(((st.pos[: st.n] >= 0)
@@ -1640,7 +1652,7 @@ def open_on_card(dev) -> dict:
     base = run_pic(SimConfig(**PALLAS_CFG, scheduler="sync"), const,
                    print_header=False, device=dev)
     for name, (wrapper, _, _, _, scheduler) in engines.items():
-        wrapper.launches = wrapper.open_launches = 0
+        wrapper.launches = wrapper.open_launches = wrapper.out_reuses = 0
         run = run_pic(SimConfig(**PALLAS_CFG, scheduler=scheduler), const,
                       print_header=False, device=dev)
         out[name] = {"launches": wrapper.open_launches}
@@ -1653,7 +1665,8 @@ def open_on_card(dev) -> dict:
             f"13c {scheduler}: final n {run.final_n} vs sync "
             f"{base.final_n}, or the particles differ")
         log(f"  13c {scheduler}: equal to sync, final n={run.final_n}, "
-            f"{name} open launches {wrapper.open_launches}")
+            f"{name} open launches {wrapper.open_launches}, "
+            f"{reuses(name, wrapper)}")
     log("13c: tests/test_pallas.py's configuration (spawn depth 6) equal to "
         "sync under dynamic and dynamic_old")
 
@@ -1671,6 +1684,7 @@ def open_on_card(dev) -> dict:
         for label, fn, vcfg in variants:
             st = setup_particles(vcfg, device=dev)
             rec = []
+            since = (wrapper.launches, wrapper.out_reuses)
             for s in range(4):
                 g = grid_phase(st, vcfg)
                 (st, info), t = timed(fn, g, s, sine, vcfg,
@@ -1684,7 +1698,8 @@ def open_on_card(dev) -> dict:
             log(f"  13d {name} {label}: phase steps 1-3 "
                 + ", ".join(f"{t:.3f}" for t in times)
                 + f" ms, mean {sum(times) / 3:.3f}, median "
-                f"{sorted(times)[1]:.3f}, final n={st.n}")
+                f"{sorted(times)[1]:.3f}, final n={st.n}, "
+                f"{reuses(name, wrapper, since)}")
         check(np.array_equal(finals["compiled (2, 13)"],
                              finals["open (2, 13)"]),
               f"13d {name}: the open (2, 13) run differs from the compiled")
@@ -2522,7 +2537,7 @@ def main() -> int:
             log(line)
         return sum(shares) / len(shares) if shares else None
 
-    worklog_phase.launches = 0
+    worklog_phase.launches = worklog_phase.out_reuses = 0
     worklog_phase.passes = 0
     packed_field_gather.launches = 0
     for k in chain_kernels:
@@ -2551,7 +2566,8 @@ def main() -> int:
         f"{passes_worklog} ({passes_worklog / 4:g} a phase), "
         f"packed_field_gather launches={field_launches}, subgrid chain "
         f"launches={chain_launches}, setup_seed launches={launches_setup}, "
-        f"added={m['added']} removed={m['removed']}")
+        f"added={m['added']} removed={m['removed']}, "
+        f"{reuses('worklog_phase', worklog_phase)}")
     field_paths("5 main path", 4)
     field_phase_ms("5 main path", st, main_cfg)
     busy = profile_phases("5 main path", st, main_cfg, 4,
@@ -2565,7 +2581,7 @@ def main() -> int:
         f"{kernel_ms:.2f} ms, median {kernel_median:.2f} ms; plain mean "
         f"{plain_ms:.2f} ms, median {plain_median:.2f} ms")
 
-    staged_phase.launches = 0
+    staged_phase.launches = staged_phase.out_reuses = 0
     staged_phase.passes = 0
     staged_phase.reclaims = 0
     packed_field_gather.launches = 0
@@ -2595,7 +2611,8 @@ def main() -> int:
         f"({reclaims_staged / 4:g} a phase), packed_field_gather "
         f"launches={packed_field_gather.launches}, subgrid chain launches="
         f"{[k.launches for k in chain_kernels]}, added={old_m['added']} "
-        f"removed={old_m['removed']}")
+        f"removed={old_m['removed']}, "
+        f"{reuses('staged_phase', staged_phase)}")
     field_paths("5b main path dynamic_old", 4)
     field_phase_ms("5b main path dynamic_old", old_st, old_cfg)
     old_busy = profile_phases("5b main path dynamic_old", old_st, old_cfg, 4,

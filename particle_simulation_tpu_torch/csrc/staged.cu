@@ -65,7 +65,10 @@
 //       below min(n, C).
 //   (d) After the last pass the finished rows go to the output state at
 //       their rank (scan tiles and a look-back), and a last barrier lets
-//       every block zero the rows past them (status EMPTY).
+//       every block zero the rows past them (status EMPTY) up to clear_to:
+//       the host passes the rows of the output that may hold anything
+//       else (the capacity for a fresh buffer, less for one it kept from
+//       an earlier phase; PERF.md section 6).
 // Every block reads each sub-phase's totals from the look-back words and
 // counters after its barrier, so all blocks take the same branches.  The
 // host reads back once a phase: the kRes* result words.  Ranks come from
@@ -171,6 +174,7 @@ struct Args {
   int32_t* out_id_hi;
   int32_t* out_id_lo;
   long long cap;
+  long long clear_to;  // rows of the output that may not hold zeros
   int32_t* stacks;   // (2, 12, cap): the population, the reclaim's target
   int32_t* stage;    // (2, D, 12, cap): a pass's children; passes alternate
   int32_t* list;     // (2, cap): a pass's list, and the next pass's
@@ -719,13 +723,15 @@ __global__ void __launch_bounds__(kTile, D <= 2 ? 2 : 1) staged_phase(Args a) {
     }
     close();
     n_live = total_of(r + kHeader, n_tiles);
-    // rows past the population hold zeros and status EMPTY
-    for (long long j = 3 * n_live + gid; j < 3 * cap; j += n_threads) {
+    // rows past the population hold zeros and status EMPTY: those up to
+    // clear_to are cleared
+    const long long clear_end = a.clear_to > n_live ? a.clear_to : n_live;
+    for (long long j = 3 * n_live + gid; j < 3 * clear_end; j += n_threads) {
       a.out_pos[j] = 0.0f;
       a.out_vel[j] = 0.0f;
       a.out_acc[j] = 0.0f;
     }
-    for (long long j = n_live + gid; j < cap; j += n_threads) {
+    for (long long j = n_live + gid; j < clear_end; j += n_threads) {
       a.out_status[j] = kStatusEmpty;
       a.out_id_hi[j] = 0;
       a.out_id_lo[j] = 0;
@@ -805,7 +811,8 @@ int run_phase(
     const void* pos, const void* vel, const void* acc, const void* status,
     const void* id_hi, const void* id_lo, long long n0, void* out_pos,
     void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
-    void* out_id_lo, long long capacity, void* stacks, void* stage,
+    void* out_id_lo, long long capacity, long long clear_to, void* stacks,
+    void* stage,
     void* list, void* lookback, long long tiles_max, void* result,
     const void* table, float dt, float half_dt, float size_x, float size_y,
     float size_z, float log10_e, float bucket_scale, unsigned int seed,
@@ -815,7 +822,8 @@ int run_phase(
     void* stream) {
   using namespace pst::staged;
   // list entries and look-back counts are 32-bit: at most C of each a pass
-  if (n0 <= 0 || capacity <= 0 || capacity > INT32_MAX || depth < 1 ||
+  if (n0 <= 0 || capacity <= 0 || capacity > INT32_MAX || clear_to < 0 ||
+      clear_to > capacity || depth < 1 ||
       (!open && depth > kMaxDepth) ||
       tiles_max < (capacity + kTile - 1) / kTile ||
       (open && (kids == nullptr || kid_blocks < 1))) {
@@ -836,6 +844,7 @@ int run_phase(
   a.out_id_hi = static_cast<int32_t*>(out_id_hi);
   a.out_id_lo = static_cast<int32_t*>(out_id_lo);
   a.cap = capacity;
+  a.clear_to = clear_to;
   a.stacks = static_cast<int32_t*>(stacks);
   a.stage = static_cast<int32_t*>(stage);
   a.list = static_cast<int32_t*>(list);
@@ -907,7 +916,9 @@ int run_phase(
 
 // A whole staged mobility phase on ``stream``: the input state (pos, vel,
 // acc (C, 3) float32; status, id_hi, id_lo (C,) int32; n0 created slots)
-// to the output state of the same capacity, through the record stacks
+// to the output state of the same capacity, whose rows from ``clear_to``
+// on hold zeros on entry (clear_to = capacity: any content), through the
+// record stacks
 // ``stacks`` ((2, 12, C) int32), the staging regions ``stage`` ((2, depth,
 // 12, C) int32), the work lists ``list`` ((2, C) int32) and the look-back
 // words ``lookback`` ((PST_STAGED_REGIONS, PST_STAGED_HEADER + (depth + 1)
@@ -921,7 +932,8 @@ extern "C" int pst_staged_phase(
     const void* pos, const void* vel, const void* acc, const void* status,
     const void* id_hi, const void* id_lo, long long n0, void* out_pos,
     void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
-    void* out_id_lo, long long capacity, void* stacks, void* stage,
+    void* out_id_lo, long long capacity, long long clear_to, void* stacks,
+    void* stage,
     void* list, void* lookback, long long tiles_max, void* result,
     const void* table, float dt, float half_dt, float size_x, float size_y,
     float size_z, float log10_e, float bucket_scale, unsigned int seed,
@@ -930,10 +942,11 @@ extern "C" int pst_staged_phase(
     float s1, float s2, void* stream) {
   return run_phase(pos, vel, acc, status, id_hi, id_lo, n0, out_pos, out_vel,
                    out_acc, out_status, out_id_hi, out_id_lo, capacity,
-                   stacks, stage, list, lookback, tiles_max, result, table,
-                   dt, half_dt, size_x, size_y, size_z, log10_e, bucket_scale,
-                   seed, poisson_step, t_steps, depth, rounds, block2, model,
-                   t0, t1, t2, s0, s1, s2, false, nullptr, 0, stream);
+                   clear_to, stacks, stage, list, lookback, tiles_max,
+                   result, table, dt, half_dt, size_x, size_y, size_z,
+                   log10_e, bucket_scale, seed, poisson_step, t_steps, depth,
+                   rounds, block2, model, t0, t1, t2, s0, s1, s2, false,
+                   nullptr, 0, stream);
 }
 
 // The same phase through the open instantiation, for any depth >= 1 and
@@ -945,7 +958,8 @@ extern "C" int pst_staged_phase_open(
     const void* pos, const void* vel, const void* acc, const void* status,
     const void* id_hi, const void* id_lo, long long n0, void* out_pos,
     void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
-    void* out_id_lo, long long capacity, void* stacks, void* stage,
+    void* out_id_lo, long long capacity, long long clear_to, void* stacks,
+    void* stage,
     void* list, void* lookback, long long tiles_max, void* result,
     const void* table, float dt, float half_dt, float size_x, float size_y,
     float size_z, float log10_e, float bucket_scale, unsigned int seed,
@@ -954,10 +968,11 @@ extern "C" int pst_staged_phase_open(
     float s1, float s2, void* kids, long long kid_blocks, void* stream) {
   return run_phase(pos, vel, acc, status, id_hi, id_lo, n0, out_pos, out_vel,
                    out_acc, out_status, out_id_hi, out_id_lo, capacity,
-                   stacks, stage, list, lookback, tiles_max, result, table,
-                   dt, half_dt, size_x, size_y, size_z, log10_e, bucket_scale,
-                   seed, poisson_step, t_steps, depth, rounds, block2, model,
-                   t0, t1, t2, s0, s1, s2, true, kids, kid_blocks, stream);
+                   clear_to, stacks, stage, list, lookback, tiles_max,
+                   result, table, dt, half_dt, size_x, size_y, size_z,
+                   log10_e, bucket_scale, seed, poisson_step, t_steps, depth,
+                   rounds, block2, model, t0, t1, t2, s0, s1, s2, true, kids,
+                   kid_blocks, stream);
 }
 
 // The blocks of the open instantiation (block2, model 0 or not, spawn

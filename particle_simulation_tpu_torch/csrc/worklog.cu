@@ -20,6 +20,11 @@
 // Work past work_cap is dropped and flags overflow (the counts go on); done
 // records past the capacity are dropped and n_done > C flags it.  A phase
 // stops after t_steps + 1 passes and flags that it did not converge.
+// Rows past the population hold zeros: the kernel clears the rows from it
+// to clear_to, which the host passes as the rows of the output that may
+// hold anything else (the capacity for a fresh buffer; a buffer the host
+// kept from an earlier phase of a smaller population needs less, which at
+// 5e7 slots and 1e6 live saves most of a phase: PERF.md section 6).
 //
 // The design, against what bounds the engine on the H100:
 //   * Host round trips.  The grid is persistent (as many blocks as can be
@@ -136,6 +141,7 @@ struct PhaseArgs {
   int32_t* out_id_hi;
   int32_t* out_id_lo;
   long long cap;
+  long long clear_to;  // rows of the output that may not hold zeros
   int32_t* logs;  // (2, 12, work_cap)
   long long work_cap;
   unsigned long long* lookback;  // (kRegions, 1 + 2 * tiles_max)
@@ -360,14 +366,15 @@ __global__ void __launch_bounds__(kTile) worklog_phase(PhaseArgs a) {
     n_src = static_cast<int>(work > a.work_cap ? a.work_cap : work);
   }
 
-  // rows past the population hold zeros
+  // rows past the population hold zeros: those up to clear_to are cleared
   const long long n_live = n_done < a.cap ? n_done : a.cap;
-  for (long long j = 3 * n_live + gid; j < 3 * a.cap; j += n_threads) {
+  const long long clear_end = a.clear_to > n_live ? a.clear_to : n_live;
+  for (long long j = 3 * n_live + gid; j < 3 * clear_end; j += n_threads) {
     a.out_pos[j] = 0.0f;
     a.out_vel[j] = 0.0f;
     a.out_acc[j] = 0.0f;
   }
-  for (long long j = n_live + gid; j < a.cap; j += n_threads) {
+  for (long long j = n_live + gid; j < clear_end; j += n_threads) {
     a.out_status[j] = 0;
     a.out_id_hi[j] = 0;
     a.out_id_lo[j] = 0;
@@ -441,7 +448,8 @@ int run_phase(
     const void* pos, const void* vel, const void* acc, const void* status,
     const void* id_hi, const void* id_lo, int n0, void* out_pos,
     void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
-    void* out_id_lo, long long capacity, void* logs, long long work_cap,
+    void* out_id_lo, long long capacity, long long clear_to, void* logs,
+    long long work_cap,
     void* lookback, long long tiles_max, void* result, const void* table,
     float dt, float half_dt, float size_x, float size_y, float size_z,
     float log10_e, float bucket_scale, unsigned int seed,
@@ -453,7 +461,8 @@ int run_phase(
   // a look-back word holds a pass's count in 32 bits: at most 1 + depth
   // work records for each of at most max(n0, work_cap) source records
   const long long most = n0 > work_cap ? n0 : work_cap;
-  if (n0 <= 0 || n0 > capacity || work_cap <= 0 || depth < 1 ||
+  if (n0 <= 0 || n0 > capacity || clear_to < 0 || clear_to > capacity ||
+      work_cap <= 0 || depth < 1 ||
       most * (1 + depth) > UINT32_MAX ||
       tiles_max < (most + kTile - 1) / kTile ||
       (open && (kids == nullptr || kid_blocks < 1))) {
@@ -474,6 +483,7 @@ int run_phase(
   a.out_id_hi = static_cast<int32_t*>(out_id_hi);
   a.out_id_lo = static_cast<int32_t*>(out_id_lo);
   a.cap = capacity;
+  a.clear_to = clear_to;
   a.logs = static_cast<int32_t*>(logs);
   a.work_cap = work_cap;
   a.lookback = static_cast<unsigned long long*>(lookback);
@@ -541,7 +551,9 @@ int run_phase(
 
 // A whole mobility phase on ``stream``: the n0 records of the input state
 // (pos, vel, acc (C, 3) float32; status, id_hi, id_lo (C,) int32) to the
-// output state of the same capacity, through the work logs ``logs``
+// output state of the same capacity, whose rows from ``clear_to`` on
+// hold zeros on entry (clear_to = capacity: any content), through the work
+// logs ``logs``
 // ((2, 12, work_cap) int32), with the look-back words ``lookback``
 // ((kRegions, 1 + 2 * tiles_max) int64, any content).  ``result``
 // (PST_WORKLOG_RESULT_WORDS int64) gets the kRes* words.  ``model`` is
@@ -553,7 +565,8 @@ extern "C" int pst_worklog_phase(
     const void* pos, const void* vel, const void* acc, const void* status,
     const void* id_hi, const void* id_lo, int n0, void* out_pos,
     void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
-    void* out_id_lo, long long capacity, void* logs, long long work_cap,
+    void* out_id_lo, long long capacity, long long clear_to, void* logs,
+    long long work_cap,
     void* lookback, long long tiles_max, void* result, const void* table,
     float dt, float half_dt, float size_x, float size_y, float size_z,
     float log10_e, float bucket_scale, unsigned int seed,
@@ -561,11 +574,12 @@ extern "C" int pst_worklog_phase(
     int block2, int model, float t0, float t1, float t2, float s0,
     float s1, float s2, void* stream) {
   return run_phase(pos, vel, acc, status, id_hi, id_lo, n0, out_pos, out_vel,
-                   out_acc, out_status, out_id_hi, out_id_lo, capacity, logs,
-                   work_cap, lookback, tiles_max, result, table, dt, half_dt,
-                   size_x, size_y, size_z, log10_e, bucket_scale, seed,
-                   poisson_step, t_steps, depth, rounds, block2, model, t0,
-                   t1, t2, s0, s1, s2, false, nullptr, 0, stream);
+                   out_acc, out_status, out_id_hi, out_id_lo, capacity,
+                   clear_to, logs, work_cap, lookback, tiles_max, result,
+                   table, dt, half_dt, size_x, size_y, size_z, log10_e,
+                   bucket_scale, seed, poisson_step, t_steps, depth, rounds,
+                   block2, model, t0, t1, t2, s0, s1, s2, false,
+                   nullptr, 0, stream);
 }
 
 // The same phase through the open instantiation, for any depth >= 1 and
@@ -577,7 +591,8 @@ extern "C" int pst_worklog_phase_open(
     const void* pos, const void* vel, const void* acc, const void* status,
     const void* id_hi, const void* id_lo, int n0, void* out_pos,
     void* out_vel, void* out_acc, void* out_status, void* out_id_hi,
-    void* out_id_lo, long long capacity, void* logs, long long work_cap,
+    void* out_id_lo, long long capacity, long long clear_to, void* logs,
+    long long work_cap,
     void* lookback, long long tiles_max, void* result, const void* table,
     float dt, float half_dt, float size_x, float size_y, float size_z,
     float log10_e, float bucket_scale, unsigned int seed,
@@ -585,11 +600,12 @@ extern "C" int pst_worklog_phase_open(
     int block2, int model, float t0, float t1, float t2, float s0,
     float s1, float s2, void* kids, long long kid_blocks, void* stream) {
   return run_phase(pos, vel, acc, status, id_hi, id_lo, n0, out_pos, out_vel,
-                   out_acc, out_status, out_id_hi, out_id_lo, capacity, logs,
-                   work_cap, lookback, tiles_max, result, table, dt, half_dt,
-                   size_x, size_y, size_z, log10_e, bucket_scale, seed,
-                   poisson_step, t_steps, depth, rounds, block2, model, t0,
-                   t1, t2, s0, s1, s2, true, kids, kid_blocks, stream);
+                   out_acc, out_status, out_id_hi, out_id_lo, capacity,
+                   clear_to, logs, work_cap, lookback, tiles_max, result,
+                   table, dt, half_dt, size_x, size_y, size_z, log10_e,
+                   bucket_scale, seed, poisson_step, t_steps, depth, rounds,
+                   block2, model, t0, t1, t2, s0, s1, s2, true, kids,
+                   kid_blocks, stream);
 }
 
 // The blocks of the open instantiation (block2, model 0 or not) that can

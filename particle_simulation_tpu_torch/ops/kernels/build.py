@@ -57,6 +57,7 @@ SIGNATURES = {
         _P, _P, _P, _I,         # status, id_hi, id_lo, n0
         _P, _P, _P,             # out_pos, out_vel, out_acc
         _P, _P, _P, _LL,        # out_status, out_id_hi, out_id_lo, capacity
+        _LL,                    # clear_to
         _P, _LL,                # logs, work_cap
         _P, _LL, _P,            # lookback, tiles_max, result
         *_PHASE_TAIL,
@@ -66,6 +67,7 @@ SIGNATURES = {
         _P, _P, _P, _LL,        # status, id_hi, id_lo, n0
         _P, _P, _P,             # out_pos, out_vel, out_acc
         _P, _P, _P, _LL,        # out_status, out_id_hi, out_id_lo, capacity
+        _LL,                    # clear_to
         _P, _P, _P,             # stacks, stage, list
         _P, _LL, _P,            # lookback, tiles_max, result
         *_PHASE_TAIL,

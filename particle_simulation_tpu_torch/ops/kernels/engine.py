@@ -13,6 +13,19 @@ words, the shortcut for an empty state, the choice between the compiled
 and the open instantiation, and the dispatch by device (a CPU state to
 the plain version, a CUDA state to the kernel, any other device raises).
 
+A phase keeps its output states between launches (``KeptOutputs``, two a
+device and stream, used in turn).  A kept output carries a mark, the rows
+its last phase wrote: every row past it holds zeros, so the kernel clears
+only the rows between the new population and the mark (``clear_to``),
+where a fresh output costs a clear of the whole capacity.  The scratch is
+not kept: the caching allocator serves it again each phase, and a kept
+scratch would stay allocated through the field phase, whose own peak is
+the larger where the box does not fit the subgrid (the magnetized cell).
+The phase takes a kept output only where nothing outside the engine holds
+its storage and no torch in-place write has reached it since it was handed
+out (its version counters): a caller that keeps its states or writes them
+in place gets a fresh output, or a clear of the whole capacity, as before.
+
 The model menu (integrator, b_field, collision_model, boundary) reaches
 both kernels through ``phys_args``: the ``MODEL_BITS`` of the selection and
 the boris rotation's constants.  Model 0, the reference, launches the
@@ -33,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -164,6 +177,86 @@ def empty_state(capacity: int, device) -> SimState:
     return SimState(vec3(), vec3(), vec3(), word(), word(), word(), n=0)
 
 
+def storage_refs(t: torch.Tensor) -> int:
+    """The tensors that share ``t``'s storage: ``t`` itself, its views and
+    its aliases (``detach``), whoever holds them."""
+    # the storage object made here holds one reference of its own
+    return torch._C._storage_Use_Count(t.untyped_storage()._cdata) - 1
+
+
+def versions(st: SimState) -> tuple:
+    """The version counter of each of ``st``'s tensors, which torch bumps
+    at every in-place write through any view or alias; None for an
+    inference tensor, which keeps none."""
+    out = []
+    for t in st[:6]:
+        try:
+            out.append(t._version)
+        except RuntimeError:
+            out.append(None)
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class Kept:
+    """An output state a phase keeps between launches: its own references
+    to the tensors (a caller gets aliases of them, never these), the mark
+    (every row at or past it holds zeros) and ``versions`` when the phase
+    handed it out (None before)."""
+
+    out: SimState
+    mark: int
+    versions: Optional[tuple] = None
+
+
+def clear_to(kept: Kept, capacity: int, device) -> Optional[int]:
+    """The rows of ``kept``'s output that a phase at ``capacity`` on
+    ``device`` has to clear past its population: None where the phase may
+    not take it (another capacity or device, or a tensor that anything
+    outside the engine still holds: a caller's state, a view of it, the
+    phase's own input), the capacity where a torch in-place write has
+    reached it since it was handed out, else its mark."""
+    out = kept.out
+    if out.capacity != capacity or out.device != torch.device(device):
+        return None
+    if any(storage_refs(t) > 1 for t in out[:6]):
+        return None
+    now = versions(out)
+    if now != kept.versions or None in now:
+        return capacity
+    return kept.mark
+
+
+class KeptOutputs:
+    """The output states one engine keeps for its phases on one device and
+    stream: at most two (``Kept``, the least recently taken first), used
+    in turn while a caller holds the last one."""
+
+    def __init__(self):
+        self.outs = []
+
+    def take(self, state: SimState) -> Tuple[Kept, int]:
+        """The output of one phase of ``state`` and its ``clear_to``: the
+        kept output that needs the least clearing, else a fresh one
+        (cleared to the capacity), which takes the place of the least
+        recently taken where both are held elsewhere.  Outputs of another
+        capacity or device are dropped."""
+        c, dev = state.capacity, state.device
+        self.outs = [k for k in self.outs
+                     if k.out.capacity == c and k.out.device == dev]
+        choices = [(to, i) for i, k in enumerate(self.outs)
+                   if (to := clear_to(k, c, dev)) is not None]
+        if choices:
+            to, i = min(choices)
+            kept = self.outs.pop(i)
+        else:
+            to, kept = c, Kept(empty_state(c, dev), c)
+            if len(self.outs) == 2:
+                self.outs.pop(0)
+        self.outs.append(kept)
+        return kept, to
+
+
 def state_buffers(prefix: str, st: SimState, c: int) -> list:
     """The (name, tensor, dtype, shape) entries of a state's six tensors at
     capacity ``c``, for ``check_buffers``."""
@@ -238,41 +331,53 @@ class Engine:
 class Phase:
     """One engine's mobility phase on the host.  Called as
     ``(lib, state, bufs, table, config, poisson_step, t_steps)`` it is the
-    launch; it carries the counters ``launches``, ``open_launches`` and
-    ``general_launches`` (of the launches, those of the open and of the
-    general instantiation), one per word of ``engine.counters`` (summed
-    over every phase) and ``last``, the last phase's result words."""
+    launch; it carries the counters ``launches``, ``open_launches``,
+    ``general_launches`` and ``out_reuses`` (of the launches, those of the
+    open and of the general instantiation, and those on a kept output
+    cleared to less than the capacity), one per word of
+    ``engine.counters`` (summed over every phase) and ``last``, the last
+    phase's result words."""
 
     def __init__(self, engine: Engine):
         self.engine = engine
         self.launches = self.open_launches = self.general_launches = 0
+        self.out_reuses = 0
         for word in engine.counters:
             setattr(self, word, 0)
         self.last = {}
+        # (device, stream) -> KeptOutputs; an entry is out of the dict
+        # while its phase runs, so two callers never share one
+        self.kept = {}
 
     def buffers(self, state: SimState, config: SimConfig,
-                kid_blocks: int = 0):
+                kid_blocks: int = 0, out: Optional[SimState] = None):
         """Uninitialised buffers for one phase on the state's device (the
-        kernel writes or zeroes what it reads); with ``kid_blocks``, for
-        the open instantiation on a grid of that many blocks."""
+        kernel writes or zeroes what it reads) around ``out``, a fresh
+        output state when None; with ``kid_blocks``, for the open
+        instantiation on a grid of that many blocks."""
         dev, c = state.device, state.capacity
-        return self.engine.buffers(empty_state(c, dev), **{
-            name: torch.empty(shape, dtype=dtype, device=dev)
-            for name, (shape, dtype)
-            in self.engine.scratch(config, c, kid_blocks).items()
-        })
+        return self.engine.buffers(
+            empty_state(c, dev) if out is None else out, **{
+                name: torch.empty(shape, dtype=dtype, device=dev)
+                for name, (shape, dtype)
+                in self.engine.scratch(config, c, kid_blocks).items()
+            })
 
     def __call__(self, lib, state: SimState, bufs, table, config: SimConfig,
-                 poisson_step: int, t_steps: int) -> None:
+                 poisson_step: int, t_steps: int,
+                 clear_to: Optional[int] = None) -> None:
         """Launch one whole mobility phase on the current stream: the
         records of ``state`` (read, never written) through every pass to
-        the compacted output ``bufs.out``; ``bufs.result`` receives the
-        ``engine.result`` words.  With ``bufs.kids`` the open instantiation
-        runs (on as many blocks as the scratch was sized for), else the
-        compiled one; any model but the reference launches the general
-        instantiation, inside the span ``pst.mobility.general``.  Raises
-        before any launch on a buffer the kernel does not take."""
+        the compacted output ``bufs.out``, whose rows from ``clear_to``
+        on hold zeros (None: the capacity, any content); ``bufs.result``
+        receives the ``engine.result`` words.  With ``bufs.kids`` the open
+        instantiation runs (on as many blocks as the scratch was sized
+        for), else the compiled one; any model but the reference launches
+        the general instantiation, inside the span
+        ``pst.mobility.general``.  Raises before any launch on a buffer the
+        kernel does not take."""
         e, c, out = self.engine, state.capacity, bufs.out
+        clear_to = c if clear_to is None else clear_to
         kid_blocks = 0 if bufs.kids is None else bufs.kids.shape[1] // e.tile
         check_buffers(f"{e.label} phase", state.device, [
             *state_buffers("state", state, c), *state_buffers("out", out, c),
@@ -288,7 +393,7 @@ class Phase:
             lib.call(
                 f"pst_{e.name}_phase_open" if kids else f"pst_{e.name}_phase",
                 *(t.data_ptr() for t in state[:6]), e.n0(state),
-                *(t.data_ptr() for t in out[:6]), c,
+                *(t.data_ptr() for t in out[:6]), c, clear_to,
                 *e.scratch_args(bufs, config), bufs.result.data_ptr(),
                 table.data_ptr(), *phys, *kids,
                 torch.cuda.current_stream(state.device).cuda_stream,
@@ -296,18 +401,21 @@ class Phase:
         self.launches += 1
         self.open_launches += bool(kids)
         self.general_launches += general
+        self.out_reuses += clear_to < c
 
     def run(self, state: SimState, bufs, poisson_step: int, table,
-            config: SimConfig, t_steps: int):
+            config: SimConfig, t_steps: int,
+            clear_to: Optional[int] = None):
         """One phase of a CUDA state with ``state.n_clamped > 0`` into
         ``bufs`` (``buffers``: sized with ``kid_blocks``, they run the open
-        instantiation, else the compiled one), then the one readback of the
-        result words: the phase's (state, info).  Raises where the phase
-        did not converge."""
+        instantiation, else the compiled one; ``clear_to`` as the launch
+        takes it), then the one readback of the result words: the phase's
+        (state, info).  Raises where the phase did not converge."""
         from . import build
 
         e = self.engine
-        self(build.load(), state, bufs, table, config, poisson_step, t_steps)
+        self(build.load(), state, bufs, table, config, poisson_step, t_steps,
+             clear_to)
         with span("pst.mobility.readback"):
             r = dict(zip(e.result, bufs.result.tolist()))  # the one readback
         for word in e.counters:
@@ -336,6 +444,29 @@ class Phase:
             return e.finish(state, zeros, dict.fromkeys(e.result, 0))
         kid_blocks = (0 if compiled(config)
                       else open_blocks(e.name, config, state.device))
+        return self.run_kept(state, poisson_step, table, config, t_steps,
+                             kid_blocks)
+
+    def run_kept(self, state: SimState, poisson_step: int, table,
+                 config: SimConfig, t_steps: int, kid_blocks: int = 0):
+        """``run`` on an output this phase keeps for the state's device and
+        the current stream (``KeptOutputs.take``: a kept one where one is
+        free, cleared to its ``clear_to``, else a fresh one) and fresh
+        scratch; the output's new mark is the population it holds.  The caller gets
+        aliases of the output's tensors, so the storage counts show the
+        next phase whether it still holds them."""
+        key = (state.device,
+               torch.cuda.current_stream(state.device).cuda_stream)
         with span("pst.mobility.alloc"):
-            bufs = self.buffers(state, config, kid_blocks)
-        return self.run(state, bufs, poisson_step, table, config, t_steps)
+            kept = self.kept.pop(key, None) or KeptOutputs()
+            out, to = kept.take(state)
+            bufs = self.buffers(state, config, kid_blocks, out.out)
+        out.mark = state.capacity  # until the kernel has written it
+        try:
+            st, info = self.run(state, bufs, poisson_step, table, config,
+                                t_steps, to)
+            out.mark, out.versions = st.n, versions(out.out)
+        finally:
+            self.kept[key] = kept
+        return st._replace(**{f: getattr(st, f).detach()
+                              for f in SimState._fields[:6]}), info

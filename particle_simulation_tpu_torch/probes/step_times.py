@@ -8,7 +8,12 @@ the final population.  A phase that is not self-compacting leaves the
 compaction to the step, outside the phase's time.
 
 The main path: 1M electrons, capacity 2M, grid 256^3, T=100, the bundled
-sine table.  Only entry points that every version of the port has are
+sine table; ``--capacity``, ``--grid``, ``--t`` and ``--bbox-subgrid``
+change its sizes (the benchmark's row: ``--capacity 50000000 --grid 512
+--bbox-subgrid 128``).  ``--profile`` runs the timed steps under
+``torch.profiler`` and adds the device time of the engine's kernel a step;
+a checkout whose engines count ``out_reuses`` also prints it beside the
+launches.  Only entry points that every version of the port has are
 called (``SimConfig``, ``cross_section``, ``state.setup_particles``,
 ``ops.step.poisson_step``, ``schedulers.get_mobility_phase``), so
 ``--tree`` may name another checkout (a ``git archive`` of an earlier
@@ -18,7 +23,8 @@ loads:
 
     python particle_simulation_tpu_torch/probes/step_times.py \\
         [--tree DIR] [--steps 3] [--schedulers dynamic_old,dynamic] \\
-        [--spawn-depth 2] [--rng-rounds 13] [--open]
+        [--spawn-depth 2] [--rng-rounds 13] [--open] [--capacity N] \\
+        [--grid G] [--t T] [--bbox-subgrid S] [--profile]
 
 ``--spawn-depth`` and ``--rng-rounds`` outside the engines' compiled set
 (depth 1-4, rounds 13 and 20) run their open instantiations; ``--open``
@@ -33,27 +39,24 @@ change, parent): one card, one power limit.
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import sys
 import time
 
 MAIN = dict(init_n=1_000_000, capacity=2_000_000, poisson_timestep=100,
             grid_size=(256, 256, 256))
-
-
 # scheduler -> (module, its engine's Phase)
-OPEN_PHASES = {
-    "dynamic": ("worklog", "worklog_phase"),
-    "dynamic_old": ("push_mcc", "staged_phase"),
-}
+COUNTED = {"dynamic": ("worklog", "worklog_phase"),
+           "dynamic_old": ("push_mcc", "staged_phase")}
+# the engines' phase kernels, by the name the profiler gives them
+ENGINE_KERNELS = ("worklog_phase", "staged_phase")
 
 
 def open_phase(scheduler: str):
     """The scheduler's engine phase through its open instantiation at any
     (depth, rounds): the buffers sized for the open grid."""
-    import importlib
-
-    module, name = OPEN_PHASES[scheduler]
+    module, name = COUNTED[scheduler]
     launch = getattr(importlib.import_module(
         f"particle_simulation_tpu_torch.ops.kernels.{module}"), name)
     engine = importlib.import_module(
@@ -68,8 +71,19 @@ def open_phase(scheduler: str):
     return phase
 
 
+def engine_ms(prof, steps: int) -> float:
+    """Device ms a step of the engines' phase kernels in a profile."""
+    total = 0.0
+    for evt in prof.key_averages():
+        if any(k in evt.key for k in ENGINE_KERNELS):
+            total += getattr(evt, "device_time_total",
+                             getattr(evt, "cuda_time_total", 0.0))
+    return total / 1e3 / steps
+
+
 def run(tree: str, schedulers, steps: int, depth: int = 2, rounds: int = 13,
-        force_open: bool = False) -> None:
+        force_open: bool = False, sizes: dict = MAIN,
+        profile: bool = False) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -89,7 +103,7 @@ def run(tree: str, schedulers, steps: int, depth: int = 2, rounds: int = 13,
                 f"{sorted(ms)[len(ms) // 2]:.3f}")
 
     for scheduler in schedulers:
-        cfg = SimConfig(**MAIN, scheduler=scheduler, spawn_depth=depth,
+        cfg = SimConfig(**sizes, scheduler=scheduler, spawn_depth=depth,
                         rng_rounds=rounds)
         fn = open_phase(scheduler) if force_open else get_mobility_phase(
             scheduler)
@@ -110,18 +124,38 @@ def run(tree: str, schedulers, steps: int, depth: int = 2, rounds: int = 13,
         st, _ = poisson_step(st, 0, table, cfg, phase=phase)
         ms = []
         del phase_ms[:]
+        counted = getattr(importlib.import_module(
+            "particle_simulation_tpu_torch.ops.kernels."
+            + COUNTED[scheduler][0]), COUNTED[scheduler][1])
+        before = {k: getattr(counted, k, None)
+                  for k in ("launches", "out_reuses")}
+        prof = None
+        if profile:
+            from torch.profiler import ProfilerActivity
+            prof = torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
         for s in range(1, steps + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             st, m = poisson_step(st, s, table, cfg, phase=phase)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
+        extra = ""
+        if prof is not None:
+            prof.stop()
+            extra += f"; engine kernel device ms {engine_ms(prof, steps):.4f}"
+        if before["out_reuses"] is not None:
+            extra += (f"; out_reuses {counted.out_reuses - before['out_reuses']}"
+                      f" of {counted.launches - before['launches']} launches")
         variant = (f" spawn_depth={depth} rng_rounds={rounds}"
-                   + (" open" if force_open else ""))
+                   + (" open" if force_open else "")
+                   + f" capacity={cfg.capacity} grid={cfg.grid_size[0]}"
+                   f" T={cfg.poisson_timestep}")
         print(f"{os.path.abspath(tree)} {scheduler}{variant}: steps "
               f"1-{steps} ms "
-              f"{stats(ms)}; mobility phase ms {stats(phase_ms)}; final "
-              f"n={st.n}", flush=True)
+              f"{stats(ms)}; mobility phase ms {stats(phase_ms)}{extra}; "
+              f"final n={st.n}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -137,9 +171,22 @@ def main(argv=None) -> int:
     ap.add_argument("--rng-rounds", type=int, default=13)
     ap.add_argument("--open", action="store_true",
                     help="the engines' open instantiations at any pair")
+    ap.add_argument("--capacity", type=int, default=MAIN["capacity"])
+    ap.add_argument("--grid", type=int, default=MAIN["grid_size"][0],
+                    help="cells along each axis")
+    ap.add_argument("--t", type=int, default=MAIN["poisson_timestep"],
+                    help="mobility steps a Poisson step")
+    ap.add_argument("--bbox-subgrid", type=int, default=None,
+                    help="the field phase's subgrid (default: the port's)")
+    ap.add_argument("--profile", action="store_true",
+                    help="the engine kernel's device time, by profiler")
     args = ap.parse_args(argv)
+    sizes = dict(MAIN, capacity=args.capacity, grid_size=(args.grid,) * 3,
+                 poisson_timestep=args.t)
+    if args.bbox_subgrid is not None:
+        sizes["bbox_subgrid"] = args.bbox_subgrid
     run(args.tree, args.schedulers.split(","), args.steps, args.spawn_depth,
-        args.rng_rounds, args.open)
+        args.rng_rounds, args.open, sizes, args.profile)
     return 0
 
 

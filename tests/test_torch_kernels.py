@@ -23,6 +23,8 @@ from particle_simulation_tpu_torch.ops.step import grid_phase
 from particle_simulation_tpu_torch.runtime import multiset_with_ids
 from particle_simulation_tpu_torch.state import setup_particles
 
+import kept_outputs
+
 pytestmark = pytest.mark.cuda
 
 CHURN = dict(init_n=3000, capacity=65536, grid_size=(32, 32, 32),
@@ -245,3 +247,29 @@ def test_magnetized_argon_matches_plain(dev):
     table = torch.from_numpy(cross_section.argon_like_table(1e23, 1e-12))
     info = _compare(cfg, table.to(dev), dev, steps=2)
     assert info["added"] > 0
+
+
+@pytest.mark.parametrize("population", kept_outputs.POPULATIONS)
+@pytest.mark.parametrize("instantiation", list(kept_outputs.INSTANTIATIONS))
+def test_kept_output_equals_fresh(dev, instantiation, population):
+    """A kept output with poison rows below its mark: every capacity row
+    of the phase's output equals the fresh path's, bit for bit (the
+    overflow at a done log of 3,000 rows, as above)."""
+    knobs = (dict(capacity=3000, worklog_rows=512)
+             if population == "overflow" else {})
+    cfg = kept_outputs.config(CHURN, instantiation, **knobs)
+    kept_outputs.check_poisoned_output(worklog_phase, mobility_phase_worklog,
+                                       cfg, population, dev)
+
+
+@pytest.mark.parametrize("instantiation", list(kept_outputs.INSTANTIATIONS))
+def test_held_states_are_left_alone(dev, instantiation):
+    kept_outputs.check_held_states(
+        worklog_phase, kept_outputs.config(CHURN, instantiation), dev)
+
+
+@pytest.mark.parametrize("instantiation", list(kept_outputs.INSTANTIATIONS))
+def test_output_written_in_place_is_cleared(dev, instantiation):
+    kept_outputs.check_in_place_step(
+        worklog_phase, mobility_phase_worklog,
+        kept_outputs.config(CHURN, instantiation), dev)

@@ -22,6 +22,8 @@ from particle_simulation_tpu_torch.ops.step import grid_phase, poisson_step
 from particle_simulation_tpu_torch.runtime import multiset_with_ids
 from particle_simulation_tpu_torch.state import setup_particles
 
+import kept_outputs
+
 pytestmark = pytest.mark.cuda
 
 CHURN = dict(init_n=3000, capacity=65536, grid_size=(32, 32, 32),
@@ -217,3 +219,29 @@ def test_table_on_the_wrong_device_raises(dev):
     with pytest.raises(ValueError, match="table"):
         pm.mobility_phase_dynamic(st, 0, load_table(device="cpu"), cfg,
                                   cfg.poisson_timestep)
+
+
+@pytest.mark.parametrize("population", kept_outputs.POPULATIONS)
+@pytest.mark.parametrize("instantiation", list(kept_outputs.INSTANTIATIONS))
+def test_kept_output_equals_fresh(dev, instantiation, population):
+    """A kept output with poison rows below its mark: every capacity row
+    of the phase's output equals the fresh path's, bit for bit (the
+    overflow at a capacity of 3,000, as above)."""
+    knobs = dict(capacity=3000) if population == "overflow" else {}
+    cfg = kept_outputs.config(CHURN, instantiation, **knobs)
+    kept_outputs.check_poisoned_output(pm.staged_phase,
+                                       pm.mobility_phase_dynamic, cfg,
+                                       population, dev)
+
+
+@pytest.mark.parametrize("instantiation", list(kept_outputs.INSTANTIATIONS))
+def test_held_states_are_left_alone(dev, instantiation):
+    kept_outputs.check_held_states(
+        pm.staged_phase, kept_outputs.config(CHURN, instantiation), dev)
+
+
+@pytest.mark.parametrize("instantiation", list(kept_outputs.INSTANTIATIONS))
+def test_output_written_in_place_is_cleared(dev, instantiation):
+    kept_outputs.check_in_place_step(
+        pm.staged_phase, pm.mobility_phase_dynamic,
+        kept_outputs.config(CHURN, instantiation), dev)
